@@ -1,0 +1,115 @@
+"""The port's hand-written CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: each test asks the ``cuda`` fixture for the device and skips
+when there is none. Shapes are main-path-like (the three ViT-ResNAS-Tiny
+stages) at a small batch. This file imports nothing of JAX, so it runs on a
+machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vit_search_torch.ops import attention as A
+from vit_search_torch.ops import kernels
+from vit_search_torch.ops import masked_layer_norm as M
+from vit_search_torch.ops.masking import make_channel_mask
+
+STAGES = [(257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64)]
+IDS = ["stage1", "stage2", "stage3"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol=2e-2):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    bound = tol * want.abs().max() + tol * want.abs()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= bound).all(), float((got - want).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernels_match_plain(cuda, n, c, h, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    qkv = torch.randn(4, n, 3 * h * d, device=cuda, generator=gen).to(dtype)
+    do = torch.randn(4, n, h * d, device=cuda, generator=gen).to(dtype)
+    scale = d ** -0.5
+    before = (A.K1.launches, A.K2.launches)
+    leaf = qkv.clone().requires_grad_()
+    out = A.fused_attention_qkv(leaf, scale, h)
+    (dqkv,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    assert (A.K1.launches, A.K2.launches) == (before[0] + 1, before[1] + 1)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(out, A.attention_qkv_plain(qkv, scale, h), tol)
+    _close(dqkv, A.attention_qkv_bwd_plain(qkv, do, scale, h), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+@pytest.mark.parametrize("shared_mask", [False, True], ids=["per_example", "batch1"])
+def test_masked_ln_kernels_match_plain(cuda, n, c, h, d, shared_mask):
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    b = 4
+    counts = torch.as_tensor(np.random.default_rng(c).integers(c // 2, c + 1, 1 if shared_mask
+                                                                else b), device=cuda)
+    mask = make_channel_mask(counts, c, dtype=torch.bfloat16)
+    x = torch.randn(b, n, c, device=cuda, generator=gen).to(torch.bfloat16) * mask
+    g = torch.randn(b, n, c, device=cuda, generator=gen).to(torch.bfloat16)
+    w = torch.randn(c, device=cuda, generator=gen)
+    bias = torch.randn(c, device=cuda, generator=gen)
+    y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
+    gx, gw, gb = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
+    ref_y, ref_stats = M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6)
+    ref_gx, ref_gw, ref_gb = M.masked_ln_bwd_plain(x, mask, w, ref_stats, g)
+    _close(y, ref_y)
+    _close(stats, ref_stats, 1e-4)
+    _close(gx, ref_gx)
+    _close(gw, ref_gw, 1e-3)
+    _close(gb, ref_gb, 1e-3)
+
+
+@pytest.mark.gpu
+def test_gradient_sums_are_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 65, 512, device=cuda, generator=gen).to(torch.bfloat16)
+    mask = torch.ones(64, 1, 512, device=cuda, dtype=torch.bfloat16)
+    w, g = torch.randn(512, device=cuda, generator=gen), torch.randn_like(x)
+    _, stats = M.masked_ln_fwd_cuda(x, mask, w, w, 1e-6)
+    first = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
+    for _ in range(3):
+        again = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    qkv = torch.zeros(2, 17, 3 * 2 * 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.attention_qkv_fwd_cuda(qkv, 0.2, 2)                  # d = 24
+    with pytest.raises(TypeError):
+        A.attention_qkv_fwd_cuda(qkv.half(), 0.2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.attention_qkv_fwd_cuda(qkv.transpose(0, 1), 0.2, 3)
+    x = torch.zeros(2, 5, 6, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 4"):
+        M.masked_ln_fwd_cuda(x, torch.ones(2, 1, 6, device=cuda, dtype=torch.bfloat16),
+                             torch.ones(6, device=cuda), torch.zeros(6, device=cuda), 1e-6)
+
+
+@pytest.mark.gpu
+def test_build_is_cached_by_source_hash(cuda):
+    kernels.build_all()
+    assert kernels.build_all() == {}
+    for name in kernels.SOURCES:
+        assert kernels._lib_path(name).exists()

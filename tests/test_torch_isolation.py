@@ -1,0 +1,104 @@
+"""The port stands alone: it imports nothing of JAX or the JAX package, and
+its entry points refuse to run without a CUDA device unless asked for the CPU."""
+
+import ast
+import importlib.util
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vit_search_tpu")
+TINY_NET = ((0, 16), (1, (16, 2, 8), (16, 32), 1), (2, 16, 4))
+
+
+def _port_sources():
+    return sorted((REPO / "vit_search_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    code = ("import sys, vit_search_torch, vit_search_torch.models, vit_search_torch.train, "
+            "vit_search_torch.data, vit_search_torch.convert, vit_search_torch.ops.kernels; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_nothing_of_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_model_needs_cuda_unless_cpu_is_asked(no_cuda):
+    from vit_search_torch.models import create_model
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("flexible_vit_sr_patch14_224", network_def=TINY_NET, img_size=28)
+    model = create_model("flexible_vit_sr_patch14_224", network_def=TINY_NET, img_size=28,
+                         device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_train_step_needs_cuda_unless_cpu_is_asked(no_cuda):
+    from vit_search_torch.models import create_model
+    from vit_search_torch.train import OptimConfig, TrainConfig, make_optimizer, make_train_step
+
+    model = create_model("flexible_vit_sr_patch14_224", network_def=TINY_NET, img_size=28,
+                         device="cpu")
+    opt = make_optimizer(OptimConfig(), model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, opt, TrainConfig(num_classes=4))
+    step = make_train_step(model, opt, TrainConfig(num_classes=4), device="cpu")
+    metrics = step(torch.zeros(2, 28, 28, 3, dtype=torch.uint8), torch.tensor([0, 1]))
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from vit_search_torch.ops import attention
+    from vit_search_torch.ops import masked_layer_norm as ln
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention.attention_qkv_fwd_cuda(torch.zeros(1, 8, 48), 0.25, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ln.masked_ln_fwd_cuda(torch.zeros(1, 8, 16), torch.ones(1, 1, 16),
+                              torch.ones(16), torch.zeros(16), 1e-6)
+
+
+def test_chip_smoke_refuses_without_cuda(no_cuda, capsys):
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.main([]) != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,24 @@
+"""Models of the port: masked ViT-SR blocks, stems, supernet sampling."""
+
+from .layers import Attention, Block, MaskedLayerNorm, Mlp
+from .patch_embed import BatchNorm, ConvBnAct, PatchConvEmbed, PatchEmbed
+from .registry import available_models, create_model
+from .supernet import SupernetSchedules, build_arch_masks
+from .vit_sr import SpatialReductionPatchEmbed, VisionTransformerSR
+
+__all__ = [
+    "Attention",
+    "BatchNorm",
+    "Block",
+    "ConvBnAct",
+    "MaskedLayerNorm",
+    "Mlp",
+    "PatchConvEmbed",
+    "PatchEmbed",
+    "SpatialReductionPatchEmbed",
+    "SupernetSchedules",
+    "VisionTransformerSR",
+    "available_models",
+    "build_arch_masks",
+    "create_model",
+]

@@ -1,0 +1,186 @@
+"""Masked transformer building blocks.
+
+Port of vit_search_tpu/models/layers.py. Channel masks arrive as call
+arguments (``(B, 1, width)`` boolean tensors built from per-step keep counts):
+
+- the attention mask zeroes trailing heads' outputs before the projection,
+- the MLP mask zeroes trailing hidden units between fc1 and fc2,
+- the layer mask (all-or-nothing per example) is ANDed with the previous
+  block's layer mask and the stage embed mask, and multiplies both residual
+  branches.
+
+Parameters are float32 and named after the reference torch state dict; each
+layer casts its weights to the compute ``dtype`` at the call, as flax's
+``dtype=`` does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterator, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention_qkv_plain, fused_attention_qkv, supported
+from ..ops.drop_path import drop_path
+from ..ops.masked_layer_norm import masked_layer_norm
+
+INIT_STD = 0.02
+GELU_FORMS = ("exact", "tanh")
+
+
+def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
+                  std: float = INIT_STD) -> torch.Tensor:
+    """Normal(0, std) truncated at two standard deviations."""
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init: truncated normal with variance 1/fan_in."""
+    fan_in = t[0].numel()
+    # std of a unit normal truncated at +-2 is 0.8796; rescale to unit variance
+    return trunc_normal_(t, generator, std=math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def make_linear(in_features: int, out_features: int, generator: torch.Generator) -> nn.Linear:
+    layer = nn.Linear(in_features, out_features)
+    with torch.no_grad():
+        trunc_normal_(layer.weight, generator)
+        layer.bias.zero_()
+    return layer
+
+
+def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero masked channels; no-op for ``None``."""
+    return x if mask is None else x * mask.to(x.dtype)
+
+
+def combine_masks(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """AND of two optional boolean masks."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return torch.logical_and(a.bool(), b.bool())
+
+
+class MaskedLayerNorm(nn.Module):
+    """Layer norm with masked-channel-corrected statistics (always affine)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return masked_layer_norm(x, self.weight, self.bias, mask, self.eps)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> [hidden mask] -> fc2. ``gelu`` is ``"exact"`` (erf)
+    or ``"tanh"`` (the approximation)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 gelu: str, dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        if gelu not in GELU_FORMS:
+            raise ValueError(f"gelu must be one of {GELU_FORMS}, got {gelu!r}")
+        self.gelu, self.dtype = gelu, dtype
+        self.fc1 = make_linear(in_features, hidden_features, generator)
+        self.fc2 = make_linear(hidden_features, out_features, generator)
+
+    def forward(self, x: torch.Tensor, hidden_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = linear(x, self.fc1, self.dtype)
+        x = F.gelu(x, approximate="tanh" if self.gelu == "tanh" else "none")
+        x = apply_mask(x, hidden_mask)
+        return linear(x, self.fc2, self.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with explicit head_dim and head masking.
+
+    ``qkv`` maps ``dim -> 3 * num_heads * head_dim`` with column blocks
+    ``[q | k | v]``, each ordered by head, so prefix slicing per third
+    extracts a subnet. The head mask applies after attention.
+    """
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, out_features: int,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.num_heads, self.head_dim, self.dtype = num_heads, head_dim, dtype
+        width = num_heads * head_dim
+        self.qkv = make_linear(dim, 3 * width, generator)
+        self.proj = make_linear(width, out_features, generator)
+
+    def forward(self, x: torch.Tensor, width_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scale = self.head_dim ** -0.5
+        qkv = linear(x, self.qkv, self.dtype)
+        if supported(x.shape[1], self.head_dim, 0.0):
+            out = fused_attention_qkv(qkv, scale, self.num_heads)
+        else:
+            out = attention_qkv_plain(qkv, scale, self.num_heads)
+        out = apply_mask(out, width_mask)
+        return linear(out, self.proj, self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block with attention/MLP/layer masking.
+
+    ``(x, embed_mask, layer_mask, masks) -> (x, new_layer_mask)``; ``masks``
+    holds optional ``attn``/``mlp``/``layer`` entries. Stochastic depth takes
+    its keep draws from ``keeps`` (an iterator, attention branch first) when
+    given, else from ``generator``.
+    """
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_hidden: int,
+                 drop_path_rate: float, gelu: str, dtype: torch.dtype,
+                 generator: torch.Generator):
+        super().__init__()
+        self.drop_path_rate = drop_path_rate
+        self.norm1 = MaskedLayerNorm(dim)
+        self.attn = Attention(dim, num_heads, head_dim, dim, dtype, generator)
+        self.norm2 = MaskedLayerNorm(dim)
+        self.mlp = Mlp(dim, mlp_hidden, dim, gelu, dtype, generator)
+
+    def _drop_path(self, x: torch.Tensor, keeps: Optional[Iterator[torch.Tensor]],
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.drop_path_rate == 0.0:
+            return x
+        keep = next(keeps) if keeps is not None else None
+        return drop_path(x, self.drop_path_rate, True, keep=keep, generator=generator)
+
+    def forward(self, x: torch.Tensor, embed_mask: Optional[torch.Tensor] = None,
+                layer_mask: Optional[torch.Tensor] = None, masks: Optional[dict] = None,
+                keeps: Optional[Iterator[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        masks = masks or {}
+        own_layer_mask = masks.get("layer")
+
+        f = self.attn(self.norm1(x, embed_mask), masks.get("attn"))
+        f = self._drop_path(f, keeps, generator)
+
+        # layer-mask chaining: only blocks with their own layer site consider
+        # the incoming mask
+        if own_layer_mask is not None:
+            f = apply_mask(f, own_layer_mask)
+            current = combine_masks(own_layer_mask, layer_mask)
+        else:
+            current = None
+        if embed_mask is not None:
+            current = embed_mask if current is None else combine_masks(current, embed_mask)
+            f = apply_mask(f, current)
+        x = x + f
+
+        f = self.mlp(self.norm2(x, embed_mask), masks.get("mlp"))
+        f = self._drop_path(f, keeps, generator)
+        if current is not None:
+            f = apply_mask(f, current)
+        return x + f, current

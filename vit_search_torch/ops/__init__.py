@@ -1,0 +1,6 @@
+"""Ops of the port: masking, stochastic depth, masked layer norm, attention.
+
+Import the modules themselves (``from vit_search_torch.ops import
+masked_layer_norm``); each kernel's wrapper, counter and plain version live
+in its module.
+"""

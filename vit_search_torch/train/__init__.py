@@ -1,0 +1,25 @@
+"""Training of the port: losses, optimizer, LR schedule, the train step."""
+
+from .engine import StepDraws, TrainConfig, TrainStep, make_train_step, normalize
+from .losses import (cross_entropy, label_smoothing_cross_entropy,
+                     soft_target_cross_entropy)
+from .optim import (OptimConfig, lr_schedule, make_optimizer, timm_epoch_lrs,
+                    weight_decay_groups)
+from .state import TrainState
+
+__all__ = [
+    "OptimConfig",
+    "StepDraws",
+    "TrainConfig",
+    "TrainState",
+    "TrainStep",
+    "cross_entropy",
+    "label_smoothing_cross_entropy",
+    "lr_schedule",
+    "make_optimizer",
+    "make_train_step",
+    "normalize",
+    "soft_target_cross_entropy",
+    "timm_epoch_lrs",
+    "weight_decay_groups",
+]

@@ -1,0 +1,34 @@
+"""Training losses; log-softmax in float32.
+
+Port of vit_search_tpu/train/losses.py (the distillation loss waits for the
+slice that ports the teacher).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    return F.log_softmax(x.float(), dim=-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE against integer labels."""
+    logp = _log_softmax(logits)
+    return -logp.gather(-1, labels.long().unsqueeze(-1)).mean()
+
+
+def label_smoothing_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  smoothing: float = 0.1) -> torch.Tensor:
+    logp = _log_softmax(logits)
+    nll = -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    smooth = -logp.mean(dim=-1)
+    return ((1.0 - smoothing) * nll + smoothing * smooth).mean()
+
+
+def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean of ``-sum(target * log_softmax(logits))`` over all leading axes;
+    takes ``(B, K)`` class targets and ``(B, N, K)`` patch targets."""
+    return (-(targets.float() * _log_softmax(logits)).sum(dim=-1)).mean()
