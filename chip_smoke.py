@@ -8,16 +8,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the hand-written kernels from ``vit_search_torch/csrc`` (nvcc, sm_90a);
 3. every kernel against its plain PyTorch version at the three stage shapes
-   of the ViT-ResNAS-Tiny supernet at batch 512, with stated tolerances, and
-   timed with CUDA events beside its bound and PyTorch's own call;
+   of the ViT-ResNAS-Tiny supernet, at the batch each main path gives it
+   (512 for the train step; 2048 for a scoring forward: K1, K3 and K5), with
+   stated tolerances, and timed with CUDA events beside its bound and
+   PyTorch's own call: ``ms`` is the device time per launch (launches
+   captured in a CUDA graph, inputs rotated past the L2 cache), ``call_ms``
+   the time per call of the wrapper, host overhead included;
 4. a small conv-stem supernet: the port's forward and one train step on the
-   card (kernels) against the same on the CPU (plain versions), in float32;
+   card (kernels) against the same on the CPU (plain versions), in float32,
+   once on each masked-LN route (``fused``: K3/K4; ``stats``: K5);
 5. train: the full-width ``SUPERNET_SR_TINY_MH`` supernet at 224px, batch
    512, 32 examples per architecture, token mixup, drop_path 0.2, tanh GELU,
    bf16 compute, AdamW; every loss finite, and each kernel's launch count
    moves by exactly its per-step count;
-6. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+6. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
+   the default: K1 and K3): the same supernet scores an evolutionary
+   population (20 random candidates, then one generation of 8 mutations and
+   8 crossovers) under the published Tiny budget of 1.7944 GMACs, 8
+   candidates per forward over three sub-val batches of 256 synthetic uint8
+   images (the last with 128 valid rows); every candidate in the MAC band,
+   every score in [0, 100], launches per forward exact, and one chunk's
+   logits within tolerance across the two routes;
+7. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
+   reports (``train``; ``search``, the stats route; ``search_fused``) and
+   its launches per pass of that path (a train step, or a scoring forward),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -41,14 +56,34 @@ STEPS, WARMUP = 5, 2      # timed and untimed train steps
 REPS = 10                 # timed launches per kernel
 # (tokens N, embed C, heads H, head_dim D) of the three stages at 224px
 STAGES = ((257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64))
-# per-step launches on the main path: 3 stages x 6 blocks of attention;
-# masked LN twice per block, once per SR block (2), once final
-PER_STEP = {"attention_qkv_fwd": 18, "attention_qkv_bwd": 18,
-            "masked_layer_norm_fwd": 39, "masked_layer_norm_bwd": 39}
+# per-pass launches: 3 stages x 6 blocks of attention; masked LN twice per
+# block, once per SR block (2), once final
+ATTENTION, MASKED_LNS = 3 * 6, 3 * 6 * 2 + 2 + 1
+PER_STEP = {"attention_qkv_fwd": ATTENTION, "attention_qkv_bwd": ATTENTION,
+            "masked_layer_norm_fwd": MASKED_LNS, "masked_layer_norm_bwd": MASKED_LNS}
+# a scoring forward: no backward; the masked LNs take K3 on ln_route="fused"
+# (the default) and K5 on ln_route="stats"
+PER_FORWARD = {route: {"attention_qkv_fwd": ATTENTION, "attention_qkv_bwd": 0,
+                       "masked_layer_norm_fwd": MASKED_LNS if route == "fused" else 0,
+                       "masked_layer_norm_bwd": 0,
+                       "row_sum_sumsq": MASKED_LNS if route == "stats" else 0}
+               for route in ("fused", "stats")}
+# search: --val-bs and --arch-batch of cli/evo_search.py, the Tiny budget of
+# scripts/vit-sr-nas/evolutionary_search/tiny.sh; population cut to 20 + 16
+VAL_BATCH, ARCH_BATCH, VAL_BATCHES, LAST_VALID = 256, 8, 3, 128
+SEARCH_BATCH = ARCH_BATCH * VAL_BATCH    # images per scoring forward
+SEARCH_MODEL = "flexible_vit_sr_patch14_224_patch_output_supernet"
+TINY_BUDGET = 1.7944e9
+POPULATION, PARENTS, MUTATIONS, MUTATE_PROB = 20, 8, 8, 0.3
+# the reference search (tiny.sh, evo_search.py defaults): 500 random, then 19
+# generations of 75 mutations + 75 crossovers, on 25 images x 1000 classes
+REFERENCE_SEARCH = {"first": 500, "generations": 19, "per_generation": 150,
+                    "sub_val_images": 25000}
 # H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and f32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+L2_BYTES = 50 * 2**20
 # tolerance: |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|
 BF16_TOL = (2e-2, 2e-2)
 F32_SUM_TOL = (1e-3, 1e-3)   # gw/gb: the order of the sum differs
@@ -80,6 +115,60 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, args: tuple, reps: int) -> float:
+    """Per-launch device time of ``fn(*args)``: the launches are captured in
+    one CUDA graph and replayed, so the wrapper's host overhead between them
+    drops out, and they rotate over copies of the tensor arguments that
+    together exceed twice the L2 cache, so each launch reads from HBM."""
+    import torch
+    size = nbytes(*(a for a in args if isinstance(a, torch.Tensor)))
+    copies = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                       for _ in range(math.ceil(2 * L2_BYTES / size))]
+    reps = max(reps, len(copies))
+    fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(reps):
+            fn(*copies[i % len(copies)])
+    ms = time_ms(graph.replay, 3, warmup=1) / reps
+    del graph, copies
+    return ms
+
+
+# kernel classes of a profile, matched in order on the kernel's name
+KERNEL_CLASSES = (("K1 attention forward", ("attn_fwd_kernel",)),
+                  ("K5 row statistics", ("row_stats_kernel",)),
+                  ("K3/K4 masked LN", ("masked_ln_",)),
+                  ("convolution", ("fprop", "conv", "cudnn")),
+                  ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
+                  ("reduction", ("reduce",)),
+                  ("elementwise and copies", ("elementwise", "copy")))
+
+
+def profile_kernels(fn, top: int = 12):
+    """Device time by kernel over one call of ``fn`` (torch.profiler):
+    ``(device-busy ms, wall ms, {class: ms}, [(name, ms, calls), ...])``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    classes: dict = {}
+    for name, ms, _ in rows:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    return sum(r[1] for r in rows), wall_ms, classes, rows[:top]
+
+
 def compare(name: str, got, want, tol, floor: float = 0.0) -> float:
     """Max abs error; raises if an element is outside the tolerance
     ``max(atol * max|want|, floor) + rtol * |want|``."""
@@ -109,75 +198,81 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_attention(stage: int, reps: int):
+def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool):
+    """K1 (and K2 where ``backward``) against the plain versions at ``batch``."""
     import torch
     import torch.nn.functional as F
     from vit_search_torch.ops import attention as A
 
     n, _, h, d = STAGES[stage]
-    b, w = BATCH, h * d
+    b, w = batch, h * d
     scale = d ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(stage)
     qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch.bfloat16)
     do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch.bfloat16)
+    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16"}
+    tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
 
-    # through autograd: the forward launches K1, the backward K2
-    leaf = qkv.clone().requires_grad_()
-    out = A.fused_attention_qkv(leaf, scale, h)
-    (dqkv,) = torch.autograd.grad(out, leaf, do)
+    # through autograd, as the model calls it: the forward launches K1, the
+    # backward K2; the search path's forward runs under no_grad
+    leaf = qkv.clone().requires_grad_(backward)
+    with torch.set_grad_enabled(backward):
+        out = A.fused_attention_qkv(leaf, scale, h)
+    if backward:
+        (dqkv,) = torch.autograd.grad(out, leaf, do)
     torch.cuda.synchronize()
     ref_out = A.attention_qkv_plain(qkv, scale, h)
-    ref_dqkv = A.attention_qkv_bwd_plain(qkv, do, scale, h)
-    err_fwd = compare(f"K1 stage {stage + 1}", out, ref_out, BF16_TOL)
-    err_bwd = compare(f"K2 stage {stage + 1}", dqkv, ref_dqkv, BF16_TOL)
+    err_fwd = compare(f"K1 stage {stage + 1} B={b}", out, ref_out, BF16_TOL)
+    del out, leaf
 
-    fwd_ms = time_ms(lambda: A.attention_qkv_fwd_cuda(qkv, scale, h), reps)
-    bwd_ms = time_ms(lambda: A.attention_qkv_bwd_cuda(qkv, do, scale, h), reps)
+    fwd_call_ms = time_ms(lambda: A.attention_qkv_fwd_cuda(qkv, scale, h), reps)
+    fwd_ms = graph_ms(A.attention_qkv_fwd_cuda, (qkv, scale, h), reps)
     plain_fwd_ms = time_ms(lambda: A.attention_qkv_plain(qkv, scale, h), reps)
-    plain_bwd_ms = time_ms(lambda: A.attention_qkv_bwd_plain(qkv, do, scale, h), reps)
 
     # PyTorch's own attention on the same tensors, as a yardstick only
-    sleaf = qkv.clone().requires_grad_()
+    sleaf = qkv.clone().requires_grad_(backward)
     q, k, v = sleaf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
-    do_bhnd = do.view(b, n, h, d).transpose(1, 2)
 
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), sleaf, do_bhnd)
-
     with torch.no_grad():
         lib_fwd_ms = time_ms(sdpa, reps)
-    lib_fwd_bwd_ms = time_ms(sdpa_fwd_bwd, reps)
+    bfwd = bound(nbytes(qkv, ref_out), 4.0 * b * h * n * n * d, PEAK_BF16)
+    entries = [dict(name="attention_qkv_fwd", stage=stage + 1, shape=shape, path=path,
+                    max_abs_err=err_fwd, tolerance=tolerance, ms=fwd_ms, call_ms=fwd_call_ms,
+                    plain_ms=plain_fwd_ms, bound_ms=bfwd[0], bound_by=bfwd[1],
+                    library_ms=lib_fwd_ms,
+                    library_call="F.scaled_dot_product_attention forward")]
+    if not backward:
+        return entries
 
-    flops_fwd = 4.0 * b * h * n * n * d
-    flops_bwd = 10.0 * b * h * n * n * d
-    bfwd = bound(nbytes(qkv, ref_out), flops_fwd, PEAK_BF16)
-    bbwd = bound(nbytes(qkv, do, ref_dqkv), flops_bwd, PEAK_BF16)
-    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16"}
-    return [
-        dict(name="attention_qkv_fwd", stage=stage + 1, shape=shape, max_abs_err=err_fwd,
-             tolerance=f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)",
-             ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0], bound_by=bfwd[1],
-             library_ms=lib_fwd_ms,
-             library_call="F.scaled_dot_product_attention forward"),
-        dict(name="attention_qkv_bwd", stage=stage + 1, shape=shape, max_abs_err=err_bwd,
-             tolerance=f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)",
-             ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bbwd[0], bound_by=bbwd[1],
-             library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
-             library_call="F.scaled_dot_product_attention (forward+backward) - forward"),
-    ]
+    ref_dqkv = A.attention_qkv_bwd_plain(qkv, do, scale, h)
+    err_bwd = compare(f"K2 stage {stage + 1} B={b}", dqkv, ref_dqkv, BF16_TOL)
+    bwd_call_ms = time_ms(lambda: A.attention_qkv_bwd_cuda(qkv, do, scale, h), reps)
+    bwd_ms = graph_ms(A.attention_qkv_bwd_cuda, (qkv, do, scale, h), reps)
+    plain_bwd_ms = time_ms(lambda: A.attention_qkv_bwd_plain(qkv, do, scale, h), reps)
+    do_bhnd = do.view(b, n, h, d).transpose(1, 2)
+    lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sleaf, do_bhnd), reps)
+    bbwd = bound(nbytes(qkv, do, ref_dqkv), 10.0 * b * h * n * n * d, PEAK_BF16)
+    entries.append(dict(
+        name="attention_qkv_bwd", stage=stage + 1, shape=shape, path=path,
+        max_abs_err=err_bwd, tolerance=tolerance, ms=bwd_ms, call_ms=bwd_call_ms,
+        plain_ms=plain_bwd_ms, bound_ms=bbwd[0], bound_by=bbwd[1],
+        library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+        library_call="F.scaled_dot_product_attention (forward+backward) - forward"))
+    return entries
 
 
-def check_masked_ln(stage: int, reps: int):
+def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool):
+    """K3 (and K4 where ``backward``) against the plain versions at ``batch``."""
     import numpy as np
     import torch
     from vit_search_torch.ops import masked_layer_norm as M
     from vit_search_torch.ops.masking import make_channel_mask
 
     n, c, _, _ = STAGES[stage]
-    b = BATCH
+    b = batch
     gen = torch.Generator(device="cuda").manual_seed(100 + stage)
     widths = np.array([c, c * 7 // 8, c * 3 // 4, c * 11 // 16, c * 5 // 8])
     counts = torch.as_tensor(np.random.default_rng(stage).choice(widths, b), device="cuda")
@@ -186,43 +281,86 @@ def check_masked_ln(stage: int, reps: int):
     g = torch.randn(b, n, c, device="cuda", generator=gen).to(torch.bfloat16)
     w = torch.randn(c, device="cuda", generator=gen)
     bias = torch.randn(c, device="cuda", generator=gen)
+    shape = {"B": b, "N": n, "C": c, "dtype": "bfloat16"}
 
     y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
-    gx, gw, gb = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
     torch.cuda.synchronize()
     ref_y, ref_stats = M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6)
-    ref_gx, ref_gw, ref_gb = M.masked_ln_bwd_plain(x, mask, w, ref_stats, g)
-    err_fwd = max(compare(f"K3 y stage {stage + 1}", y, ref_y, BF16_TOL),
-                  compare(f"K3 stats stage {stage + 1}", stats, ref_stats, STATS_TOL))
-    err_bwd = compare(f"K4 gx stage {stage + 1}", gx, ref_gx, BF16_TOL)
-    err_sum = max(compare(f"K4 gw stage {stage + 1}", gw, ref_gw, F32_SUM_TOL),
-                  compare(f"K4 gb stage {stage + 1}", gb, ref_gb, F32_SUM_TOL))
-
-    fwd_ms = time_ms(lambda: M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6), reps)
-    bwd_ms = time_ms(lambda: M.masked_ln_bwd_cuda(x, mask, w, stats, g), reps)
+    err_fwd = max(compare(f"K3 y stage {stage + 1} B={b}", y, ref_y, BF16_TOL),
+                  compare(f"K3 stats stage {stage + 1} B={b}", stats, ref_stats, STATS_TOL))
+    fwd_call_ms = time_ms(lambda: M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6), reps)
+    fwd_ms = graph_ms(M.masked_ln_fwd_cuda, (x, mask, w, bias, 1e-6), reps)
     plain_fwd_ms = time_ms(lambda: M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6), reps)
-    plain_bwd_ms = time_ms(lambda: M.masked_ln_bwd_plain(x, mask, w, stats, g), reps)
-
     bfwd = bound(nbytes(x, mask, w, bias, ref_y, ref_stats), 10.0 * x.numel(), PEAK_F32)
+    entries = [dict(name="masked_layer_norm_fwd", stage=stage + 1, shape=shape, path=path,
+                    max_abs_err=err_fwd,
+                    tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
+                               f"stats: {STATS_TOL}"),
+                    ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
+                    bound_by=bfwd[1], library_ms=None)]
+    if not backward:
+        return entries
+
+    gx, gw, gb = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
+    torch.cuda.synchronize()
+    ref_gx, ref_gw, ref_gb = M.masked_ln_bwd_plain(x, mask, w, ref_stats, g)
+    err_bwd = compare(f"K4 gx stage {stage + 1} B={b}", gx, ref_gx, BF16_TOL)
+    err_sum = max(compare(f"K4 gw stage {stage + 1} B={b}", gw, ref_gw, F32_SUM_TOL),
+                  compare(f"K4 gb stage {stage + 1} B={b}", gb, ref_gb, F32_SUM_TOL))
+    bwd_call_ms = time_ms(lambda: M.masked_ln_bwd_cuda(x, mask, w, stats, g), reps)
+    bwd_ms = graph_ms(M.masked_ln_bwd_cuda, (x, mask, w, stats, g), reps)
+    plain_bwd_ms = time_ms(lambda: M.masked_ln_bwd_plain(x, mask, w, stats, g), reps)
     bbwd = bound(nbytes(x, mask, w, ref_stats, g, ref_gx, ref_gw, ref_gb),
                  14.0 * x.numel(), PEAK_F32)
-    shape = {"B": b, "N": n, "C": c, "dtype": "bfloat16"}
-    return [
-        dict(name="masked_layer_norm_fwd", stage=stage + 1, shape=shape, max_abs_err=err_fwd,
-             tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
-                        f"stats: {STATS_TOL}"),
-             ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0], bound_by=bfwd[1],
-             library_ms=None),
-        dict(name="masked_layer_norm_bwd", stage=stage + 1, shape=shape,
-             max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
-             tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
-                        f"gw/gb: {F32_SUM_TOL}"),
-             ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bbwd[0], bound_by=bbwd[1],
-             library_ms=None),
-    ]
+    entries.append(dict(
+        name="masked_layer_norm_bwd", stage=stage + 1, shape=shape, path=path,
+        max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
+        tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
+                   f"gw/gb: {F32_SUM_TOL}"),
+        ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_bwd_ms, bound_ms=bbwd[0],
+        bound_by=bbwd[1], library_ms=None))
+    return entries
 
 
-def check_reference_net():
+def check_row_stats(stage: int, reps: int, batch: int, path: str):
+    """K5 against its plain version at ``batch``."""
+    import torch
+    from vit_search_torch.ops import stats as S
+
+    n, c, _, _ = STAGES[stage]
+    gen = torch.Generator(device="cuda").manual_seed(200 + stage)
+    x = (torch.randn(batch, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    s1, s2 = S.row_sum_sumsq_cuda(x)
+    torch.cuda.synchronize()
+    ref1, ref2 = S.row_sum_sumsq_plain(x)
+    err = max(compare(f"K5 sum stage {stage + 1} B={batch}", s1, ref1, STATS_TOL),
+              compare(f"K5 sumsq stage {stage + 1} B={batch}", s2, ref2, STATS_TOL))
+    call_ms = time_ms(lambda: S.row_sum_sumsq_cuda(x), reps)
+    ms = graph_ms(S.row_sum_sumsq_cuda, (x,), reps)
+    plain_ms = time_ms(lambda: S.row_sum_sumsq_plain(x), reps)
+    b = bound(nbytes(x, ref1, ref2), 3.0 * x.numel(), PEAK_F32)
+    return [dict(name="row_sum_sumsq", stage=stage + 1, path=path,
+                 shape={"B": batch, "N": n, "C": c, "dtype": "bfloat16"}, max_abs_err=err,
+                 tolerance=f"abs <= {STATS_TOL[0]}*max|ref| + {STATS_TOL[1]}*|ref| (f32 sums)",
+                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b[0],
+                 bound_by=b[1], library_ms=None,
+                 library_call="none: no single PyTorch call returns both sums")]
+
+
+def check_kernels(stage: int, reps: int):
+    """Every kernel at the shapes each main path gives it: the train step's
+    batch (K1-K4; K5 at the same batch, the training step on the stats
+    route), and a scoring forward's ``ARCH_BATCH * VAL_BATCH`` images (K1
+    and K5 on the stats-route search, K1 and K3 on the fused-route one)."""
+    return (check_attention(stage, reps, BATCH, "train", backward=True)
+            + check_masked_ln(stage, reps, BATCH, "train", backward=True)
+            + check_row_stats(stage, reps, BATCH, "search")
+            + check_attention(stage, reps, SEARCH_BATCH, "search", backward=False)
+            + check_masked_ln(stage, reps, SEARCH_BATCH, "search_fused", backward=False)
+            + check_row_stats(stage, reps, SEARCH_BATCH, "search"))
+
+
+def check_reference_net(ln_route: str):
     """A small conv-stem supernet, float32: card (kernels) vs CPU (plain)."""
     import numpy as np
     import torch
@@ -261,7 +399,7 @@ def check_reference_net():
     for dev in ("cpu", "cuda"):
         model = create_model("flexible_vit_sr_patch14_224_patch_output_supernet",
                              network_def=net, img_size=img, drop_path_rate=0.1,
-                             gelu="tanh", device=dev, seed=0)
+                             gelu="tanh", device=dev, seed=0, ln_route=ln_route)
         masks = build_arch_masks(sched.unpack(counts, batch), net, batch, device=dev)
         x = torch.randn(batch, img, img, 3, generator=torch.Generator().manual_seed(1)).to(dev)
         cls, patch = model(x, masks, patch_output_type="seq",
@@ -347,6 +485,162 @@ def train(steps: int, warmup: int):
             "launches": launches}
 
 
+def sub_val_loader():
+    """Synthetic sub-val batches of uint8 images on the card, the same at
+    every call; the last batch has ``LAST_VALID`` valid rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    loader = []
+    for i in range(VAL_BATCHES):
+        valid = torch.ones(VAL_BATCH, device="cuda")
+        if i == VAL_BATCHES - 1:
+            valid[LAST_VALID:] = 0
+        loader.append((torch.randint(0, 256, (VAL_BATCH, 224, 224, 3), dtype=torch.uint8,
+                                     device="cuda", generator=gen),
+                       torch.randint(0, 1000, (VAL_BATCH,), device="cuda", generator=gen),
+                       valid))
+    return loader
+
+
+def chunk_forward(model, sched, defs, images):
+    """One chunk's tiled forward, as the evaluator runs it: the logits (on the
+    host) and the forward's time."""
+    import numpy as np
+    import torch
+    from vit_search_torch.models import build_arch_masks
+    from vit_search_torch.train import TrainConfig, normalize
+
+    counts = sched.counts_for_subnets(defs)
+    tiled = {"embed": np.repeat(counts["embed"], VAL_BATCH),
+             "slots": {s: {k: np.repeat(v, VAL_BATCH) for k, v in site.items()}
+                       for s, site in counts["slots"].items()}}
+    masks = build_arch_masks(tiled, model.network_def, SEARCH_BATCH, device="cuda")
+    x = normalize(images, TrainConfig()).repeat(ARCH_BATCH, 1, 1, 1)
+    with torch.no_grad():
+        logits = model.eval()(x, masks).float().cpu()
+        ms = time_ms(lambda: model(x, masks), reps=2, warmup=0)
+    return logits, ms
+
+
+def search(ln_route: str, card: str):
+    """Score an evolutionary population on the full-width supernet with its
+    masked LNs on ``ln_route``. Returns the report and one chunk's logits."""
+    import gc
+
+    import numpy as np
+    import torch
+    from vit_search_torch.arch import ComputationEstimator, presets, spaces
+    from vit_search_torch.models import SupernetSchedules, create_model
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.search import (BatchedSupernetEvaluator, PopulationEvolver,
+                                         gen_random_network_def)
+    from vit_search_torch.search.generators import RESOURCE_LOWER_BOUND
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    net, space = presets.SUPERNET_SR_TINY_MH, spaces.get_space("sr_tiny_mh")
+    model = create_model(SEARCH_MODEL, network_def=net, dtype=torch.bfloat16, gelu="tanh",
+                         seed=0, ln_route=ln_route)
+    sched = SupernetSchedules(net, space, example_per_arch=1, num_warmup_epochs=0,
+                              arch_mode="multi")
+    loader = sub_val_loader()
+    evaluator = BatchedSupernetEvaluator(model, sched, loader, arch_batch=ARCH_BATCH,
+                                         score_head="cls")
+    est = ComputationEstimator(distill=False, input_resolution=224, patch_size=14)
+    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0)
+
+    # warm-up, and one chunk's logits for the cross-check of the two routes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    check_defs = [gen_random_network_def(net, space, TINY_BUDGET, est, rng=rng)
+                  for _ in range(ARCH_BATCH)]
+    evaluator.score(check_defs)
+    logits, chunk_ms = chunk_forward(model, sched, check_defs, loader[0][0])
+    warm_s = time.perf_counter() - t0
+
+    # the main path: generators on the host, scoring on the card
+    gc.collect()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    gen_s = score_s = 0.0
+    forwards = 0
+    for generation in range(2):
+        t0 = time.perf_counter()
+        if generation == 0:
+            evolver.random_sample(POPULATION)
+        else:
+            evolver.evolve_sample(parent_size=PARENTS, mutate_prob=MUTATE_PROB,
+                                  mutate_size=MUTATIONS)
+        t1 = time.perf_counter()
+        defs = [ind.network_def for ind in evolver.popu]
+        scores = evaluator.score(defs)
+        torch.cuda.synchronize()
+        gen_s += t1 - t0
+        score_s += time.perf_counter() - t1
+        forwards += -(-len(defs) // ARCH_BATCH) * len(loader)
+        for ind, sc in zip(evolver.popu, scores):
+            ind.score = float(sc)
+        evolver.update_history()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+
+    candidates = evolver.history_popu
+    lo = RESOURCE_LOWER_BOUND * TINY_BUDGET
+    macs = [est(ind.network_def) for ind in candidates]
+    if len(candidates) != POPULATION + 2 * MUTATIONS:
+        raise AssertionError(f"{len(candidates)} candidates scored")
+    if not all(lo <= m <= TINY_BUDGET for m in macs):
+        raise AssertionError(f"candidate MACs outside [{lo}, {TINY_BUDGET}]: {macs}")
+    if not all(math.isfinite(i.score) and 0.0 <= i.score <= 100.0 for i in candidates):
+        raise AssertionError(f"scores outside [0, 100]: {[i.score for i in candidates]}")
+    for kname, per in PER_FORWARD[ln_route].items():
+        if launches[kname] != per * forwards:
+            raise AssertionError(f"{kname}: {launches[kname]} launches in {forwards} "
+                                 f"forwards on ln_route={ln_route}, expected {per} per forward")
+    # one chunk (a forward per sub-val batch) under the profiler
+    busy_ms, wall_ms, classes, top = profile_kernels(lambda: evaluator.score(check_defs))
+
+    # the reference search at the measured seconds per candidate-image
+    # forwarded (a short last chunk forwards fewer) and per candidate
+    ref = REFERENCE_SEARCH
+    ref_candidates = ref["first"] + ref["generations"] * ref["per_generation"]
+    ref_images = ref_candidates * -(-ref["sub_val_images"] // VAL_BATCH) * VAL_BATCH
+    images = len(candidates) * VAL_BATCHES * VAL_BATCH
+    valid_images = (VAL_BATCHES - 1) * VAL_BATCH + LAST_VALID
+    out = {"ln_route": ln_route, "candidates": len(candidates), "forwards": forwards,
+           "images_per_forward": SEARCH_BATCH, "valid_images": valid_images,
+           "candidate_images_forwarded": images,
+           "candidates_per_s": len(candidates) / score_s,
+           "candidate_images_per_s": len(candidates) * valid_images / score_s,
+           "score_s": score_s, "generator_s": gen_s, "warmup_s": warm_s,
+           "max_memory_allocated_bytes": peak, "chunk_forward_ms": chunk_ms,
+           "launches": launches, "macs_min_max": [min(macs), max(macs)],
+           "best": {"score": evolver.best().score,
+                    "network_def": repr(evolver.best().network_def)},
+           "profiled_chunk": {"forwards": len(loader), "device_busy_ms": busy_ms,
+                              "wall_ms": wall_ms, "by_class_ms": classes, "top_kernels": top},
+           "reference_search": {**ref, "candidate_images_forwarded": ref_images,
+                                "scoring_s": ref_images * score_s / images,
+                                "generator_s": ref_candidates * gen_s / len(candidates)}}
+    print(f"search, ln_route={ln_route}: {out['candidates_per_s']:.2f} candidates/s, "
+          f"{out['candidate_images_per_s']:.1f} candidate-images/s ({len(candidates)} "
+          f"candidates x {valid_images} images, {SEARCH_BATCH} images per forward), host "
+          f"generators {gen_s:.3f} s, peak memory {peak / 2**30:.2f} GiB on {card}",
+          flush=True)
+    n = len(loader)
+    by_class = ", ".join(f"{c} {ms / n:.1f}" for c, ms in sorted(classes.items(),
+                                                                   key=lambda kv: -kv[1]))
+    log(f"search, ln_route={ln_route}: {1e3 * score_s * SEARCH_BATCH / images:.1f} ms per "
+        f"{SEARCH_BATCH} candidate-images ({chunk_ms:.1f} ms for the cross-check chunk's "
+        f"forward alone); profiled, per full forward: {busy_ms / n:.1f} ms device-busy of "
+        f"{wall_ms / n:.1f} ms ({by_class}); the reference search ({ref_candidates} "
+        f"candidates, {ref_images} candidate-images forwarded) would take "
+        f"{out['reference_search']['scoring_s'] / 3600:.2f} h of scoring and "
+        f"{out['reference_search']['generator_s']:.0f} s of generators")
+    return out, logits
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
@@ -373,29 +667,44 @@ def main(argv=None) -> int:
 
     entries = []
     for stage in range(len(STAGES)):
-        entries += check_attention(stage, REPS)
-        entries += check_masked_ln(stage, REPS)
-        log(f"stage {stage + 1} kernels agree with their plain versions")
-    report["reference_net"] = check_reference_net()
-    log(f"reference net: card vs CPU {report['reference_net']}")
+        entries += check_kernels(stage, REPS)
+        log(f"stage {stage + 1} kernels agree with their plain versions at B = {BATCH} "
+            f"and B = {SEARCH_BATCH}")
+    for ln_route in ("fused", "stats"):
+        report[f"reference_net_{ln_route}"] = errs = check_reference_net(ln_route)
+        log(f"reference net, ln_route={ln_route}: card vs CPU {errs}")
 
     report["train"] = tr = train(STEPS, WARMUP)
     print(f"train: {tr['imgs_per_s']:.1f} imgs/s ({tr['step_ms']:.1f} ms/step, batch "
           f"{BATCH}) peak memory {tr['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
           f"on {card}", flush=True)
+    # the search on each masked-LN route, one model on the card at a time;
+    # one chunk's logits must agree across the routes
+    searches, logits = {}, {}
+    for ln_route in ("stats", "fused"):
+        searches[ln_route], logits[ln_route] = search(ln_route, card)
+    report["search"] = searches
+    report["search_logits_stats_vs_fused_max_abs_err"] = compare(
+        "search logits, stats vs fused route", logits["stats"], logits["fused"], BF16_TOL)
+
+    # each kernel entry reports the launches of the path that gives it its shape
+    runs = {"train": (tr, PER_STEP), "search": (searches["stats"], PER_FORWARD["stats"]),
+            "search_fused": (searches["fused"], PER_FORWARD["fused"])}
     by_name = {k.name: k for k in kernels.KERNELS}
     for e in entries:
         k = by_name[e["name"]]
-        e.update(route="cuda", source=k.source, replaces=k.replaces,
-                 launches=tr["launches"][e["name"]],
-                 launches_per_step=PER_STEP[e["name"]], kernel_ms=e["ms"])
+        run, per = runs[e["path"]]
+        e.update(route="cuda", source=k.source, replaces=k.replaces, batch=e["shape"]["B"],
+                 launches=run["launches"][e["name"]], launches_per_step=per[e["name"]],
+                 kernel_ms=e["ms"])
     report["kernels"] = entries
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)
-    keys = ("name", "stage", "route", "source", "replaces", "launches", "launches_per_step",
-            "max_abs_err", "tolerance", "ms", "kernel_ms", "plain_ms", "bound_ms",
+    keys = ("name", "stage", "batch", "route", "source", "replaces", "path", "launches",
+            "launches_per_step",
+            "max_abs_err", "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,6 +15,7 @@ import torch
 from vit_search_torch.ops import attention as A
 from vit_search_torch.ops import kernels
 from vit_search_torch.ops import masked_layer_norm as M
+from vit_search_torch.ops import stats as S
 from vit_search_torch.ops.masking import make_channel_mask
 
 STAGES = [(257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64)]
@@ -105,6 +106,85 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="C % 4"):
         M.masked_ln_fwd_cuda(x, torch.ones(2, 1, 6, device=cuda, dtype=torch.bfloat16),
                              torch.ones(6, device=cuda), torch.zeros(6, device=cuda), 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_row_stats_kernel_matches_plain(cuda, n, c, h, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + c)
+    x = (torch.randn(4, n, c, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
+    before = S.K5.launches
+    s1, s2 = S.row_sum_sumsq_cuda(x)
+    torch.cuda.synchronize()
+    assert S.K5.launches == before + 1
+    ref1, ref2 = S.row_sum_sumsq_plain(x)
+    _close(s1, ref1, 1e-4)
+    _close(s2, ref2, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 5, 100, 1000, 4096, 4100])
+def test_row_stats_kernel_takes_any_width(cuda, c):
+    """Ragged widths take the element-wise loads; wide rows loop per lane."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(3, 7, c, device=cuda, generator=gen).to(torch.bfloat16)
+    for got, want in zip(S.row_sum_sumsq_cuda(x), S.row_sum_sumsq_plain(x)):
+        _close(got, want, 1e-4)
+
+
+@pytest.mark.gpu
+def test_row_stats_kernel_is_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(512, 65, 512, device=cuda, generator=gen).to(torch.bfloat16)
+    first = S.row_sum_sumsq_cuda(x)
+    for _ in range(3):
+        again = S.row_sum_sumsq_cuda(x)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+def test_stats_route_matches_fused_route(cuda, n, c, h, d):
+    """Masked LN from K5's sums (plus plain torch) against K3, and the
+    gradients through K5's elementwise backward against K4."""
+    gen = torch.Generator(device=cuda).manual_seed(c + 1)
+    counts = torch.as_tensor(np.random.default_rng(c).integers(c // 2, c + 1, 4), device=cuda)
+    mask = make_channel_mask(counts, c, dtype=torch.bfloat16)
+    x = torch.randn(4, n, c, device=cuda, generator=gen).to(torch.bfloat16) * mask
+    g = torch.randn(4, n, c, device=cuda, generator=gen).to(torch.bfloat16)
+    w, bias = torch.randn(c, device=cuda, generator=gen), torch.randn(c, device=cuda,
+                                                                      generator=gen)
+    out = {}
+    for route in ("fused", "stats"):
+        leaf = x.clone().requires_grad_()
+        y = M.masked_layer_norm(leaf, w, bias, mask, route=route)
+        (gx,) = torch.autograd.grad(y, leaf, g)
+        out[route] = (y, gx)
+    _close(out["stats"][0], out["fused"][0])
+    _close(out["stats"][1], out["fused"][1])
+
+
+@pytest.mark.gpu
+def test_evaluator_refuses_cpu_tensors(cuda):
+    from vit_search_torch.models import SupernetSchedules, create_model
+    from vit_search_torch.search import BatchedSupernetEvaluator
+
+    net = ((0, 16), (1, (16, 2, 8), (16, 32), 1), (2, 16, 4))
+    space = [np.array([16, 8]), {"attn": np.array([16]), "mlp": np.array([32]),
+                                 "layer": None}, None]
+    model = create_model("flexible_vit_sr_patch14_224", network_def=net, img_size=28,
+                         ln_route="stats")
+    images = torch.zeros(2, 28, 28, 3, dtype=torch.uint8)
+    labels = torch.tensor([0, 1])
+    ev = BatchedSupernetEvaluator(model, SupernetSchedules(net, space, 1, 0),
+                                  [(images, labels)])
+    with pytest.raises(ValueError, match="the step runs on cuda"):
+        ev.score([net])
+    ev.loader = [(images.to(cuda), labels.to(cuda))]
+    (score,) = ev.score([net])
+    assert 0.0 <= score <= 100.0
 
 
 @pytest.mark.gpu

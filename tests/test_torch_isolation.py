@@ -24,7 +24,8 @@ def _port_sources():
 
 def test_port_imports_no_jax_in_a_fresh_process():
     code = ("import sys, vit_search_torch, vit_search_torch.models, vit_search_torch.train, "
-            "vit_search_torch.data, vit_search_torch.convert, vit_search_torch.ops.kernels; "
+            "vit_search_torch.data, vit_search_torch.convert, vit_search_torch.ops.kernels, "
+            "vit_search_torch.ops.stats, vit_search_torch.search; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -76,8 +77,32 @@ def test_train_step_needs_cuda_unless_cpu_is_asked(no_cuda):
     assert np.isfinite(float(metrics["loss"]))
 
 
+def test_eval_and_search_need_cuda_unless_cpu_is_asked(no_cuda):
+    from vit_search_torch.models import SupernetSchedules, create_model
+    from vit_search_torch.search import BatchedSupernetEvaluator, make_tiled_correct_step
+    from vit_search_torch.train import make_eval_step, make_per_example_correct_step
+
+    model = create_model("flexible_vit_sr_patch14_224", network_def=TINY_NET, img_size=28,
+                         device="cpu")
+    space = [np.array([16, 8]), {"attn": np.array([16]), "mlp": np.array([32]),
+                                 "layer": None}, None]
+    sched = SupernetSchedules(TINY_NET, space, 1, 0)
+    images, labels = torch.zeros(2, 28, 28, 3, dtype=torch.uint8), torch.tensor([0, 1])
+    for make in (make_eval_step, make_per_example_correct_step, make_tiled_correct_step):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedSupernetEvaluator(model, sched, [(images, labels)])
+    metrics = make_eval_step(model, device="cpu")(images, labels)
+    assert float(metrics["count"]) == 2.0
+    assert make_per_example_correct_step(model, device="cpu")(images, labels).shape == (2,)
+    ev = BatchedSupernetEvaluator(model, sched, [(images, labels)], device="cpu")
+    scores = ev.score([TINY_NET])
+    assert len(scores) == 1 and 0.0 <= scores[0] <= 100.0
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from vit_search_torch.ops import attention
+    from vit_search_torch.ops import attention, stats
     from vit_search_torch.ops import masked_layer_norm as ln
 
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -85,6 +110,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ln.masked_ln_fwd_cuda(torch.zeros(1, 8, 16), torch.ones(1, 1, 16),
                               torch.ones(16), torch.zeros(16), 1e-6)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        stats.row_sum_sumsq_cuda(torch.zeros(1, 8, 16))
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, capsys):

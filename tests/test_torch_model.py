@@ -130,3 +130,32 @@ def test_tanh_gelu_is_an_explicit_argument(monkeypatch):
     with torch.no_grad():
         got = model(torch.tensor(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "dense"])
+def test_distill_supernet_forward_matches_jax(masked):
+    """A distill-token supernet: two-row ``tokens`` and the ``dst_head`` go
+    through ``convert``; both heads' logits match."""
+    net, space, img, patch = CASES["conv_stem_3_stage"]
+    jmodel = JaxViT(network_def=net, img_size=img, patch_size=patch, num_classes=10,
+                    distill_token=True)
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(4), jnp.zeros((2, img, img, 3)))
+    params = jax.tree.map(np.asarray, variables["params"])
+    stats = jax.tree.map(np.asarray, variables["batch_stats"])
+    assert params["tokens"].shape == (1, 2, 32) and "dst_head" in params
+    model = VisionTransformerSR(net, img_size=img, patch_size=patch, num_classes=10,
+                                distill_token=True, device="cpu")
+    load_jax(model, params, stats)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(BATCH, img, img, 3)).astype(np.float32)
+    counts = JaxSchedules(net, space, example_per_arch=2,
+                          num_warmup_epochs=0).sample_packed(rng, BATCH)
+    jax_masks, masks = _masks("conv_stem_3_stage", counts) if masked else (None, None)
+    cls_ref, dst_ref = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                                    jax_masks, deterministic=True)
+    model.eval()
+    with torch.no_grad():
+        cls, dst = model(torch.tensor(x), masks)
+    np.testing.assert_allclose(cls.numpy(), np.asarray(cls_ref), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dst.numpy(), np.asarray(dst_ref), rtol=1e-4, atol=1e-4)
+    assert not np.allclose(np.asarray(cls_ref), np.asarray(dst_ref))

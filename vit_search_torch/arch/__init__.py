@@ -1,10 +1,11 @@
 """Architecture IR, search spaces and canonical presets (numpy only).
 
 A copy of the JAX package's ``arch`` modules, so the port imports nothing of
-it. The cost model waits for a later slice.
+it.
 """
 
-from . import network_def, presets, spaces
+from . import cost, network_def, presets, spaces
+from .cost import ComputationEstimator
 from .network_def import (NetworkDef, format_network_def, parse_network_def,
                           to_immutable, to_mutable, update_depth,
                           update_embed_size, validate)
@@ -12,9 +13,11 @@ from .presets import PRESETS
 from .spaces import available_spaces, get_space
 
 __all__ = [
+    "ComputationEstimator",
     "NetworkDef",
     "PRESETS",
     "available_spaces",
+    "cost",
     "format_network_def",
     "get_space",
     "network_def",

@@ -72,16 +72,17 @@ def combine_masks(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> Optio
 
 
 class MaskedLayerNorm(nn.Module):
-    """Layer norm with masked-channel-corrected statistics (always affine)."""
+    """Layer norm with masked-channel-corrected statistics (always affine);
+    ``route`` is the masked path's route, ``"fused"`` or ``"stats"``."""
 
-    def __init__(self, features: int, eps: float = 1e-6):
+    def __init__(self, features: int, eps: float = 1e-6, route: str = "fused"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.route = eps, route
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return masked_layer_norm(x, self.weight, self.bias, mask, self.eps)
+        return masked_layer_norm(x, self.weight, self.bias, mask, self.eps, self.route)
 
 
 class Mlp(nn.Module):
@@ -137,17 +138,17 @@ class Block(nn.Module):
     ``(x, embed_mask, layer_mask, masks) -> (x, new_layer_mask)``; ``masks``
     holds optional ``attn``/``mlp``/``layer`` entries. Stochastic depth takes
     its keep draws from ``keeps`` (an iterator, attention branch first) when
-    given, else from ``generator``.
+    given, else from ``generator``. ``ln_route`` is both norms' route.
     """
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_hidden: int,
                  drop_path_rate: float, gelu: str, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, ln_route: str = "fused"):
         super().__init__()
         self.drop_path_rate = drop_path_rate
-        self.norm1 = MaskedLayerNorm(dim)
+        self.norm1 = MaskedLayerNorm(dim, route=ln_route)
         self.attn = Attention(dim, num_heads, head_dim, dim, dtype, generator)
-        self.norm2 = MaskedLayerNorm(dim)
+        self.norm2 = MaskedLayerNorm(dim, route=ln_route)
         self.mlp = Mlp(dim, mlp_hidden, dim, gelu, dtype, generator)
 
     def _drop_path(self, x: torch.Tensor, keeps: Optional[Iterator[torch.Tensor]],

@@ -27,7 +27,8 @@ def available_models() -> List[str]:
 
 def create_model(name: str, **kwargs) -> VisionTransformerSR:
     """Instantiate a registered model on the CUDA device (``device="cpu"``
-    to build it on the CPU)."""
+    to build it on the CPU). Keyword arguments go to
+    :class:`VisionTransformerSR` (``gelu``, ``ln_route``, ``dtype``, ...)."""
     try:
         factory = _REGISTRY[name]
     except KeyError:

@@ -3,6 +3,7 @@
 Port of vit_search_tpu/models/supernet.py:
 
   host:   SupernetSchedules.sample(rng, batch)   ->  keep-count tree (numpy ints)
+          (or .counts_for_subnets(defs): the tree that selects given candidates)
   device: build_arch_masks(counts, ...)          ->  boolean mask tree
   device: model(x, masks=...)
 
@@ -125,6 +126,44 @@ class SupernetSchedules:
             else:
                 _, slot, key = path
                 counts["slots"].setdefault(slot, {})[key] = piece
+        return counts
+
+    def counts_for_subnets(self, sub_defs: Sequence[Sequence]) -> Dict:
+        """Keep counts that select explicit candidate network_defs.
+
+        Entry ``a`` of every returned ``(A,)`` array selects exactly
+        ``sub_defs[a]``: masked evaluation in place of the reference's
+        per-candidate weight extraction. A removed slot keeps the supernet's
+        widths with layer count 0.
+        """
+        num = len(sub_defs)
+        if any(len(sub) != len(self.network_def) for sub in sub_defs):
+            raise ValueError("candidate def has different slot count")
+        counts: Dict = {"embed": None, "slots": {}}
+        if self.embed is not None:
+            counts["embed"] = np.array([nd.embed_channels(sub[0]) for sub in sub_defs],
+                                       dtype=np.int64)
+        for slot, site in self.slots.items():
+            sup_block = self.network_def[slot]
+            if nd.block_type(sup_block) == nd.SPATIAL_REDUCTION:
+                counts["slots"][slot] = {"embed": np.array(
+                    [nd.sr_channels(sub[slot])[1] for sub in sub_defs], dtype=np.int64)}
+                continue
+            sup = nd.transformer_def(sup_block)
+            attn, mlp, layer = (np.empty(num, dtype=np.int64) for _ in range(3))
+            for a, sub in enumerate(sub_defs):
+                tdef = nd.transformer_def(sub[slot])
+                if tdef.head_dim != sup.head_dim:
+                    raise ValueError(f"slot {slot}: head_dim mismatch")
+                if not tdef.exists and "layer" not in site:
+                    raise ValueError(f"slot {slot}: candidate removes a non-removable block")
+                attn[a] = tdef.attn_width if tdef.exists else sup.attn_width
+                mlp[a] = tdef.ffn_hidden if tdef.exists else sup.ffn_hidden
+                layer[a] = sup.embed_dim if tdef.exists else 0
+            entry = {"attn": attn, "mlp": mlp}
+            if "layer" in site:
+                entry["layer"] = layer
+            counts["slots"][slot] = entry
         return counts
 
 

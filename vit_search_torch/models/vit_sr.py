@@ -38,14 +38,15 @@ class SpatialReductionPatchEmbed(nn.Module):
     """
 
     def __init__(self, grid: int, in_features: int, out_features: int, num_tokens: int,
-                 dtype: torch.dtype, generator: torch.Generator, reduction: int = 2):
+                 dtype: torch.dtype, generator: torch.Generator, reduction: int = 2,
+                 ln_route: str = "fused"):
         super().__init__()
         if out_features < in_features:
             raise ValueError("SR block cannot narrow the embedding")
         self.grid, self.num_tokens, self.reduction, self.dtype = grid, num_tokens, reduction, dtype
         self.in_features, self.out_features = in_features, out_features
         out_grid = grid // reduction
-        self.norm = MaskedLayerNorm(in_features)
+        self.norm = MaskedLayerNorm(in_features, route=ln_route)
         self.patch_reduce = make_conv(in_features, out_features, reduction + 1, reduction,
                                       reduction // 2, True, generator, "trunc_normal")
         self.pos_embed = nn.Parameter(trunc_normal_(
@@ -84,14 +85,16 @@ class VisionTransformerSR(nn.Module):
 
     Parameters are float32; ``dtype`` is the compute type. The module is
     built from ``seed`` on the CPU and moved to ``device`` (the CUDA device
-    unless ``"cpu"`` is asked for).
+    unless ``"cpu"`` is asked for). ``ln_route`` is the route of every masked
+    layer norm: ``"fused"`` (kernels K3/K4) or ``"stats"`` (K5's row sums,
+    the rest plain PyTorch); see ``ops.masked_layer_norm``.
     """
 
     def __init__(self, network_def, img_size: int = 224, patch_size: int = 14,
                  num_classes: int = 1000, distill_token: bool = False,
                  patch_output: bool = False, drop_path_rate: float = 0.0,
                  gelu: str = "exact", dtype: torch.dtype = torch.float32,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, ln_route: str = "fused"):
         super().__init__()
         device = resolve_device(device)
         if patch_output and distill_token:
@@ -102,6 +105,7 @@ class VisionTransformerSR(nn.Module):
         if head_classes != num_classes:
             raise ValueError(f"head has {head_classes} classes, model {num_classes}")
         self.network_def = net
+        self.distill_token = distill_token
         self.num_tokens = 2 if distill_token else 1
         self.patch_output = patch_output
         self.dtype = dtype
@@ -129,21 +133,23 @@ class VisionTransformerSR(nn.Module):
                 tdef = nd.transformer_def(block_def)
                 if tdef.exists:
                     blocks.append(Block(embed_dim, tdef.num_heads, tdef.head_dim,
-                                        tdef.ffn_hidden, float(dpr[d]), gelu, dtype, gen))
+                                        tdef.ffn_hidden, float(dpr[d]), gelu, dtype, gen,
+                                        ln_route))
                     d += 1
                 else:
                     blocks.append(Bypass())
             else:
                 _, out_ch = nd.sr_channels(block_def)
                 blocks.append(SpatialReductionPatchEmbed(grid, embed_dim, out_ch,
-                                                         self.num_tokens, dtype, gen))
+                                                         self.num_tokens, dtype, gen,
+                                                         ln_route=ln_route))
                 grid //= 2
                 embed_dim = out_ch
         self.blocks = nn.ModuleList(blocks)
         if head_in != embed_dim:
             raise ValueError(f"head width {head_in} != final stage width {embed_dim}")
 
-        self.norm = MaskedLayerNorm(embed_dim)
+        self.norm = MaskedLayerNorm(embed_dim, route=ln_route)
         self.cls_head = make_linear(embed_dim, num_classes, gen)
         if distill_token:
             self.dst_head = make_linear(embed_dim, num_classes, gen)

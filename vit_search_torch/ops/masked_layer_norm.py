@@ -10,13 +10,18 @@ whatever the input dtype; the output is re-masked.
     y = (weight * (x - mu) * rsqrt(var + eps) + bias) * mask
 
 Port of vit_search_tpu/ops/masked_layer_norm.py and its Pallas kernels
-(ops/pallas/masked_ln.py). The dense path (``mask is None``) stays plain
-PyTorch, as the JAX package leaves it to XLA. The masked path is one autograd
-function whose forward saves float32 ``(mu, inv_std)`` per row:
+(ops/pallas/masked_ln.py, ops/pallas/stats.py). The dense path (``mask is
+None``) stays plain PyTorch, as the JAX package leaves it to XLA. The masked
+path takes one of two routes:
 
-- K3 (``csrc/masked_ln.cu``, forward) and K4 (backward) for CUDA tensors;
-- :func:`masked_ln_fwd_plain` and :func:`masked_ln_bwd_plain`, the same
-  functions in plain PyTorch, for CPU tensors.
+- ``"fused"`` (the JAX package's ``VST_PALLAS_LN=1``): one autograd function
+  whose forward saves float32 ``(mu, inv_std)`` per row; K3
+  (``csrc/masked_ln.cu``, forward) and K4 (backward) for CUDA tensors,
+  :func:`masked_ln_fwd_plain` and :func:`masked_ln_bwd_plain` for CPU tensors;
+- ``"stats"`` (``VST_PALLAS_LN_STATS=1``): K5 (``ops/stats.py``) gives the
+  row sums of ``x`` and ``x**2`` from one read, and the normalize, affine and
+  mask arithmetic is plain PyTorch, in the operation order of
+  masked_layer_norm.py:84-92; autograd differentiates it.
 
 A CUDA tensor goes through the kernels, or the wrapper raises.
 """
@@ -31,6 +36,7 @@ import torch
 
 from . import kernels
 from .kernels import Kernel
+from .stats import row_sum_sumsq
 
 K3 = kernels.register(Kernel(
     "masked_layer_norm_fwd", "vit_search_torch/csrc/masked_ln.cu",
@@ -40,6 +46,7 @@ K4 = kernels.register(Kernel(
     "vit_search_tpu/ops/pallas/masked_ln.py:58"))
 
 MAX_KERNEL_CHANNELS = 2048
+ROUTES = ("fused", "stats")
 
 
 def masked_ln_fwd_plain(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
@@ -168,19 +175,39 @@ class _MaskedLayerNorm(torch.autograd.Function):
         return gx, gw.to(weight.dtype), gb.to(weight.dtype), None, None
 
 
+def _stats_route(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 mask: torch.Tensor, eps: float) -> torch.Tensor:
+    """The masked path from K5's row sums (masked_layer_norm.py:78-92)."""
+    xf, maskf = x.float(), mask.float()
+    inv_p = 1.0 / maskf.mean(-1, keepdim=True)
+    s1, s2 = row_sum_sumsq(x)
+    scale = inv_p * (1.0 / x.shape[-1])
+    mu = s1.unsqueeze(-1) * scale
+    var = s2.unsqueeze(-1) * scale - mu.square()
+    z = (xf - mu) / torch.sqrt(var + eps)
+    y = weight.float() * z + bias.float()
+    return (y * maskf).to(x.dtype)
+
+
 def masked_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                      mask: Optional[torch.Tensor], eps: float = 1e-6) -> torch.Tensor:
+                      mask: Optional[torch.Tensor], eps: float = 1e-6,
+                      route: str = "fused") -> torch.Tensor:
     """Masked layer norm over the last axis.
 
     ``x`` is ``(..., N, C)`` with masked channels already zeroed; ``mask`` is
     ``(B or 1, 1, C)`` (boolean or 0/1), or ``None`` for dense layer norm.
-    Returns ``x.dtype``.
+    ``route`` picks how the masked path runs (``"fused"`` or ``"stats"``, see
+    the module docstring). Returns ``x.dtype``.
     """
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if mask is None:
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
         y = (xf - mu) / torch.sqrt(var + eps)
         return (weight.float() * y + bias.float()).to(x.dtype)
+    if route == "stats":
+        return _stats_route(x, weight, bias, mask, eps)
     return _MaskedLayerNorm.apply(x.contiguous(), weight, bias,
                                   mask.to(x.dtype).contiguous(), float(eps))

@@ -1,4 +1,4 @@
-"""The train step.
+"""The train step and the eval steps.
 
 Port of ``make_train_step`` (vit_search_tpu/train/engine.py:76-186), token
 mixup branch:
@@ -13,6 +13,10 @@ draws (stochastic depth) from a ``torch.Generator`` on the model's device,
 both seeded by ``seed``; a :class:`StepDraws` injects either, so tests can
 feed in the JAX package's draws. Mixup/CutMix, random erasing, EMA and
 knowledge distillation wait for a later slice.
+
+``make_eval_step`` and ``make_per_example_correct_step`` (engine.py:189-252)
+run the model in eval mode under ``torch.no_grad()``, uint8 batches
+normalized on the device.
 """
 
 from __future__ import annotations
@@ -58,6 +62,22 @@ def normalize(images: torch.Tensor, config: TrainConfig) -> torch.Tensor:
     return (x - mean) / std
 
 
+def model_device(model: torch.nn.Module, device=None) -> torch.device:
+    """The step's device (the CUDA device unless ``"cpu"`` is asked for);
+    raises unless ``model`` is already there."""
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"model is not on {device}")
+    return device
+
+
+def check_on(device: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on ``device``'s type."""
+    for name, t in tensors.items():
+        if t.device.type != device.type:
+            raise ValueError(f"{name} is on {t.device}; the step runs on {device}")
+
+
 class TrainStep:
     """``step(images, labels, counts, draws=None) -> {loss, grad_norm, lr}``.
 
@@ -69,9 +89,7 @@ class TrainStep:
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  config: TrainConfig, schedule: Optional[Callable[[int], float]] = None,
                  counts_unpack: Optional[Callable] = None, seed: int = 0, device=None):
-        device = resolve_device(device)
-        if next(model.parameters()).device.type != device.type:
-            raise ValueError(f"model is not on {device}")
+        device = model_device(model, device)
         if config.mixup_mode not in ("none", "token"):
             raise NotImplementedError(f"mixup_mode {config.mixup_mode!r} is not ported yet")
         self.model, self.optimizer, self.config = model, optimizer, config
@@ -135,3 +153,57 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     """Build the train step; it runs on the CUDA device unless
     ``device="cpu"`` is asked for, and ``model`` must already be there."""
     return TrainStep(model, optimizer, config, schedule, counts_unpack, seed, device)
+
+
+def _eval_outputs(model: torch.nn.Module, device: torch.device, images: torch.Tensor,
+                  labels: torch.Tensor, counts: Optional[Dict]):
+    """Eval-mode forward: ``(cls_pred, dst_pred or None)``."""
+    check_on(device, images=images, labels=labels)
+    model.eval()
+    images = normalize(images, TrainConfig())
+    masks = build_arch_masks(counts, model.network_def, images.shape[0], device=device)
+    outputs = model(images, masks)
+    return outputs if isinstance(outputs, tuple) else (outputs, None)
+
+
+def make_eval_step(model: torch.nn.Module, device=None) -> Callable:
+    """``eval_step(images, labels, counts=None)`` -> summed metrics on the
+    device: ``loss_sum``, ``top1``, ``top5``, ``count``, plus ``dst_*`` and
+    ``jnt_*`` top-k for a distill-token model (reference engine.py:194-261).
+    ``counts`` is a keep-count tree (round-robin over the batch) or ``None``
+    for the dense net. Runs on the CUDA device unless ``device="cpu"``."""
+    device = model_device(model, device)
+
+    @torch.no_grad()
+    def eval_step(images: torch.Tensor, labels: torch.Tensor,
+                  counts: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        cls_pred, dst_pred = _eval_outputs(model, device, images, labels, counts)
+        batch = images.shape[0]
+        metrics = {"count": torch.tensor(float(batch), device=device),
+                   "loss_sum": losses.cross_entropy(cls_pred, labels) * batch}
+        for prefix, pred in (("", cls_pred), ("dst_", dst_pred)):
+            if pred is not None:
+                metrics.update({prefix + k: v.float()
+                                for k, v in losses.top_k_correct(pred, labels).items()})
+        if dst_pred is not None:
+            joint = cls_pred.float().softmax(-1) + dst_pred.float().softmax(-1)
+            metrics.update({"jnt_" + k: v.float()
+                            for k, v in losses.top_k_correct(joint, labels).items()})
+        return metrics
+
+    return eval_step
+
+
+def make_per_example_correct_step(model: torch.nn.Module, device=None) -> Callable:
+    """``step(images, labels, counts=None)`` -> ``(B,)`` float top-1
+    correctness of the cls head, on the device. Runs on the CUDA device
+    unless ``device="cpu"``."""
+    device = model_device(model, device)
+
+    @torch.no_grad()
+    def step(images: torch.Tensor, labels: torch.Tensor,
+             counts: Optional[Dict] = None) -> torch.Tensor:
+        cls_pred, _ = _eval_outputs(model, device, images, labels, counts)
+        return (cls_pred.argmax(-1) == labels).float()
+
+    return step

@@ -1,4 +1,4 @@
-"""Training losses; log-softmax in float32.
+"""Training losses (log-softmax in float32) and top-k correct counts.
 
 Port of vit_search_tpu/train/losses.py (the distillation loss waits for the
 slice that ports the teacher).
@@ -32,3 +32,12 @@ def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> to
     """Mean of ``-sum(target * log_softmax(logits))`` over all leading axes;
     takes ``(B, K)`` class targets and ``(B, N, K)`` patch targets."""
     return (-(targets.float() * _log_softmax(logits)).sum(dim=-1)).mean()
+
+
+def top_k_correct(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)) -> dict:
+    """Per-batch correct counts for top-k accuracies (timm ``accuracy``)."""
+    num_classes = logits.shape[-1]
+    max_k = min(max(ks), num_classes)
+    top = logits.float().topk(max_k, dim=-1).indices
+    hit = top == labels.long().unsqueeze(-1)
+    return {f"top{k}": hit[..., :min(k, num_classes)].any(dim=-1).sum() for k in ks}
