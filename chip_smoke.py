@@ -9,19 +9,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build the hand-written kernels from ``vit_search_torch/csrc`` (nvcc, sm_90a);
 3. every kernel against its plain PyTorch version at the three stage shapes
    of the ViT-ResNAS-Tiny supernet, at the batch each main path gives it
-   (512 for the train step; 2048 for a scoring forward: K1, K3 and K5), with
-   stated tolerances, and timed with CUDA events beside its bound and
-   PyTorch's own call: ``ms`` is the device time per launch (launches
-   captured in a CUDA graph, inputs rotated past the L2 cache), ``call_ms``
-   the time per call of the wrapper, host overhead included;
+   (512 for the train step and the op-level API; 2048 for a scoring
+   forward: K1, K3 and K5), with stated tolerances, and timed with CUDA
+   events beside its bound and PyTorch's own call: ``ms`` is the device time
+   per launch (launches captured in a CUDA graph, inputs rotated past the L2
+   cache), ``call_ms`` the time per call of the wrapper, host overhead
+   included;
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32,
    once on each masked-LN route (``fused``: K3/K4; ``stats``: K5);
-5. train: the full-width ``SUPERNET_SR_TINY_MH`` supernet at 224px, batch
+5. the op-level API at each stage shape, forward and backward through
+   autograd: ``fused_attention_packed`` and ``fused_attention`` (K6/K7),
+   ``fused_attention_qkv_t`` (K8/K9); outputs of the expected shapes, the
+   ``(B, N, H, D)`` entry point equal to the ``(B, N, W)`` one, and one
+   launch of each kernel per call (the plain comparisons are phase 3's);
+6. train: the full-width ``SUPERNET_SR_TINY_MH`` supernet at 224px, batch
    512, 32 examples per architecture, token mixup, drop_path 0.2, tanh GELU,
    bf16 compute, AdamW; every loss finite, and each kernel's launch count
-   moves by exactly its per-step count;
-6. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
+   moves by exactly its per-step count; one more step under
+   ``torch.profiler``, its device time by kernel class;
+7. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
    the default: K1 and K3): the same supernet scores an evolutionary
    population (20 random candidates, then one generation of 8 mutations and
    8 crossovers) under the published Tiny budget of 1.7944 GMACs, 8
@@ -29,10 +36,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    images (the last with 128 valid rows); every candidate in the MAC band,
    every score in [0, 100], launches per forward exact, and one chunk's
    logits within tolerance across the two routes;
-7. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
-   reports (``train``; ``search``, the stats route; ``search_fused``) and
-   its launches per pass of that path (a train step, or a scoring forward),
-   then the last line ``{"ok": true, "device": {...}}``.
+8. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
+   reports (``train``; ``ops``; ``search``, the stats route;
+   ``search_fused``) and its launches per pass of that path (a train step,
+   one call of each op-level entry point, or a scoring forward), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -56,18 +64,37 @@ STEPS, WARMUP = 5, 2      # timed and untimed train steps
 REPS = 10                 # timed launches per kernel
 # (tokens N, embed C, heads H, head_dim D) of the three stages at 224px
 STAGES = ((257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64))
+# attention kernels (forward, backward) by layout
+ATTENTION_KERNELS = {"packed": ("attention_qkv_fwd", "attention_qkv_bwd"),
+                     "separate": ("attention_fwd", "attention_bwd"),
+                     "seq_major": ("attention_qkv_t_fwd", "attention_qkv_t_bwd")}
 # per-pass launches: 3 stages x 6 blocks of attention; masked LN twice per
 # block, once per SR block (2), once final
 ATTENTION, MASKED_LNS = 3 * 6, 3 * 6 * 2 + 2 + 1
-PER_STEP = {"attention_qkv_fwd": ATTENTION, "attention_qkv_bwd": ATTENTION,
-            "masked_layer_norm_fwd": MASKED_LNS, "masked_layer_norm_bwd": MASKED_LNS}
+KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd",
+                "masked_layer_norm_bwd", "row_sum_sumsq", "attention_fwd", "attention_bwd",
+                "attention_qkv_t_fwd", "attention_qkv_t_bwd")
+
+
+def per_pass(**counts):
+    """Launches of every kernel per pass of a path, 0 unless given."""
+    return {name: counts.get(name, 0) for name in KERNEL_NAMES}
+
+
+# a train step: K1/K2 on every attention layer, K3/K4 on every masked LN
+PER_STEP = per_pass(attention_qkv_fwd=ATTENTION, attention_qkv_bwd=ATTENTION,
+                    masked_layer_norm_fwd=MASKED_LNS, masked_layer_norm_bwd=MASKED_LNS)
 # a scoring forward: no backward; the masked LNs take K3 on ln_route="fused"
 # (the default) and K5 on ln_route="stats"
-PER_FORWARD = {route: {"attention_qkv_fwd": ATTENTION, "attention_qkv_bwd": 0,
-                       "masked_layer_norm_fwd": MASKED_LNS if route == "fused" else 0,
-                       "masked_layer_norm_bwd": 0,
-                       "row_sum_sumsq": MASKED_LNS if route == "stats" else 0}
+PER_FORWARD = {route: per_pass(attention_qkv_fwd=ATTENTION,
+                               **{("masked_layer_norm_fwd" if route == "fused"
+                                   else "row_sum_sumsq"): MASKED_LNS})
                for route in ("fused", "stats")}
+# a pass of the op-level API: one call of each entry point with its backward
+# (fused_attention_packed and fused_attention: K6/K7; fused_attention_qkv_t:
+# K8/K9)
+PER_OPS_PASS = per_pass(attention_fwd=2, attention_bwd=2, attention_qkv_t_fwd=1,
+                        attention_qkv_t_bwd=1)
 # search: --val-bs and --arch-batch of cli/evo_search.py, the Tiny budget of
 # scripts/vit-sr-nas/evolutionary_search/tiny.sh; population cut to 20 + 16
 VAL_BATCH, ARCH_BATCH, VAL_BATCHES, LAST_VALID = 256, 8, 3, 128
@@ -137,7 +164,8 @@ def graph_ms(fn, args: tuple, reps: int) -> float:
 
 
 # kernel classes of a profile, matched in order on the kernel's name
-KERNEL_CLASSES = (("K1 attention forward", ("attn_fwd_kernel",)),
+KERNEL_CLASSES = (("attention forward (K1/K6/K8)", ("attn_fwd_kernel",)),
+                  ("attention backward (K2/K7/K9)", ("attn_bwd_",)),
                   ("K5 row statistics", ("row_stats_kernel",)),
                   ("K3/K4 masked LN", ("masked_ln_",)),
                   ("convolution", ("fprop", "conv", "cudnn")),
@@ -198,11 +226,57 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool):
-    """K1 (and K2 where ``backward``) against the plain versions at ``batch``."""
+def attention_layout(layout: str, qkv, do, h: int):
+    """One layout's form of a ``(B, N, 3W)`` projection and its ``(B, N, W)``
+    cotangent: ``(inputs, cotangent, ops, views, cotangent_view)``. ``ops``
+    holds the autograd entry point, the kernels' wrappers and the plain
+    versions, each called as ``fn(*inputs, scale, h)`` (backward:
+    ``fn(*inputs, cotangent, scale, h)``); ``views(inputs)`` gives ``(B, H,
+    N, D)`` views of q, k and v for SDPA, ``cotangent_view`` the cotangent's."""
+    from vit_search_torch.ops import attention as A
+
+    b, n, w3 = qkv.shape
+    d = w3 // (3 * h)
+    if layout == "packed":
+        ins, g = (qkv,), do
+        ops = (A.fused_attention_qkv, A.attention_qkv_fwd_cuda, A.attention_qkv_bwd_cuda,
+               A.attention_qkv_plain, A.attention_qkv_bwd_plain)
+
+        def views(t):
+            return t[0].view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        g_view = do.view(b, n, h, d).transpose(1, 2)
+    elif layout == "separate":
+        ins, g = tuple(t.contiguous() for t in qkv.split(w3 // 3, dim=2)), do
+        ops = (A.fused_attention_packed, A.attention_fwd_cuda, A.attention_bwd_cuda,
+               A.attention_plain, A.attention_bwd_plain)
+
+        def views(t):
+            return tuple(x.view(b, n, h, d).transpose(1, 2) for x in t)
+        g_view = do.view(b, n, h, d).transpose(1, 2)
+    else:
+        ins, g = (qkv.transpose(0, 1).contiguous(),), do.transpose(0, 1).contiguous()
+        ops = (A.fused_attention_qkv_t, A.attention_qkv_t_fwd_cuda, A.attention_qkv_t_bwd_cuda,
+               A.attention_qkv_t_plain, A.attention_qkv_t_bwd_plain)
+
+        def views(t):
+            return t[0].view(n, b, 3, h, d).permute(2, 1, 3, 0, 4).unbind(0)
+        g_view = g.view(n, b, h, d).permute(1, 2, 0, 3)
+    return ins, g, ops, views, g_view
+
+
+def flat(grads):
+    """A backward's result as one tensor (three cotangents side by side)."""
+    import torch
+    return torch.cat(grads, dim=2) if isinstance(grads, tuple) else grads
+
+
+def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool,
+                    layout: str = "packed"):
+    """The attention kernels of ``layout`` (K1/K2 packed, K6/K7 separate,
+    K8/K9 sequence-major; the backward where ``backward``) against their
+    plain versions at ``batch``."""
     import torch
     import torch.nn.functional as F
-    from vit_search_torch.ops import attention as A
 
     n, _, h, d = STAGES[stage]
     b, w = batch, h * d
@@ -210,36 +284,43 @@ def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool
     gen = torch.Generator(device="cuda").manual_seed(stage)
     qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch.bfloat16)
     do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch.bfloat16)
-    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16"}
+    ins, g, (entry, fwd_cuda, bwd_cuda, fwd_plain, bwd_plain), views, g_view = attention_layout(
+        layout, qkv, do, h)
+    del qkv, do
+    fwd_name, bwd_name = ATTENTION_KERNELS[layout]
+    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16", "layout": layout}
     tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
+    what = f"{fwd_name} stage {stage + 1} B={b}"
 
-    # through autograd, as the model calls it: the forward launches K1, the
-    # backward K2; the search path's forward runs under no_grad
-    leaf = qkv.clone().requires_grad_(backward)
+    # through autograd, as a caller uses it: the forward launches the forward
+    # kernel, the backward the backward kernel; a scoring forward runs under
+    # no_grad
+    leaves = tuple(t.clone().requires_grad_(backward) for t in ins)
     with torch.set_grad_enabled(backward):
-        out = A.fused_attention_qkv(leaf, scale, h)
+        out = entry(*leaves, scale, h)
     if backward:
-        (dqkv,) = torch.autograd.grad(out, leaf, do)
+        grads = torch.autograd.grad(out, leaves, g)
+        grads = grads[0] if len(grads) == 1 else grads
     torch.cuda.synchronize()
-    ref_out = A.attention_qkv_plain(qkv, scale, h)
-    err_fwd = compare(f"K1 stage {stage + 1} B={b}", out, ref_out, BF16_TOL)
-    del out, leaf
+    ref_out = fwd_plain(*ins, scale, h)
+    err_fwd = compare(what, out, ref_out, BF16_TOL)
+    del out, leaves
 
-    fwd_call_ms = time_ms(lambda: A.attention_qkv_fwd_cuda(qkv, scale, h), reps)
-    fwd_ms = graph_ms(A.attention_qkv_fwd_cuda, (qkv, scale, h), reps)
-    plain_fwd_ms = time_ms(lambda: A.attention_qkv_plain(qkv, scale, h), reps)
+    fwd_call_ms = time_ms(lambda: fwd_cuda(*ins, scale, h), reps)
+    fwd_ms = graph_ms(fwd_cuda, (*ins, scale, h), reps)
+    plain_fwd_ms = time_ms(lambda: fwd_plain(*ins, scale, h), reps)
 
-    # PyTorch's own attention on the same tensors, as a yardstick only
-    sleaf = qkv.clone().requires_grad_(backward)
-    q, k, v = sleaf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    # PyTorch's own attention on views of the same tensors, as a yardstick only
+    sleaves = tuple(t.clone().requires_grad_(backward) for t in ins)
+    q, k, v = views(sleaves)
 
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
     with torch.no_grad():
         lib_fwd_ms = time_ms(sdpa, reps)
-    bfwd = bound(nbytes(qkv, ref_out), 4.0 * b * h * n * n * d, PEAK_BF16)
-    entries = [dict(name="attention_qkv_fwd", stage=stage + 1, shape=shape, path=path,
+    bfwd = bound(nbytes(*ins, ref_out), 4.0 * b * h * n * n * d, PEAK_BF16)
+    entries = [dict(name=fwd_name, stage=stage + 1, shape=shape, path=path,
                     max_abs_err=err_fwd, tolerance=tolerance, ms=fwd_ms, call_ms=fwd_call_ms,
                     plain_ms=plain_fwd_ms, bound_ms=bfwd[0], bound_by=bfwd[1],
                     library_ms=lib_fwd_ms,
@@ -247,16 +328,16 @@ def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool
     if not backward:
         return entries
 
-    ref_dqkv = A.attention_qkv_bwd_plain(qkv, do, scale, h)
-    err_bwd = compare(f"K2 stage {stage + 1} B={b}", dqkv, ref_dqkv, BF16_TOL)
-    bwd_call_ms = time_ms(lambda: A.attention_qkv_bwd_cuda(qkv, do, scale, h), reps)
-    bwd_ms = graph_ms(A.attention_qkv_bwd_cuda, (qkv, do, scale, h), reps)
-    plain_bwd_ms = time_ms(lambda: A.attention_qkv_bwd_plain(qkv, do, scale, h), reps)
-    do_bhnd = do.view(b, n, h, d).transpose(1, 2)
-    lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sleaf, do_bhnd), reps)
-    bbwd = bound(nbytes(qkv, do, ref_dqkv), 10.0 * b * h * n * n * d, PEAK_BF16)
+    ref_grads = bwd_plain(*ins, g, scale, h)
+    err_bwd = compare(f"{bwd_name} stage {stage + 1} B={b}", flat(grads), flat(ref_grads),
+                      BF16_TOL)
+    bwd_call_ms = time_ms(lambda: bwd_cuda(*ins, g, scale, h), reps)
+    bwd_ms = graph_ms(bwd_cuda, (*ins, g, scale, h), reps)
+    plain_bwd_ms = time_ms(lambda: bwd_plain(*ins, g, scale, h), reps)
+    lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sleaves, g_view), reps)
+    bbwd = bound(nbytes(*ins, g, flat(ref_grads)), 10.0 * b * h * n * n * d, PEAK_BF16)
     entries.append(dict(
-        name="attention_qkv_bwd", stage=stage + 1, shape=shape, path=path,
+        name=bwd_name, stage=stage + 1, shape=shape, path=path,
         max_abs_err=err_bwd, tolerance=tolerance, ms=bwd_ms, call_ms=bwd_call_ms,
         plain_ms=plain_bwd_ms, bound_ms=bbwd[0], bound_by=bbwd[1],
         library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
@@ -350,9 +431,11 @@ def check_row_stats(stage: int, reps: int, batch: int, path: str):
 def check_kernels(stage: int, reps: int):
     """Every kernel at the shapes each main path gives it: the train step's
     batch (K1-K4; K5 at the same batch, the training step on the stats
-    route), and a scoring forward's ``ARCH_BATCH * VAL_BATCH`` images (K1
-    and K5 on the stats-route search, K1 and K3 on the fused-route one)."""
+    route; K6-K9, the op-level API's), and a scoring forward's ``ARCH_BATCH * VAL_BATCH`` images (K1 and K5 on
+    the stats-route search, K1 and K3 on the fused-route one)."""
     return (check_attention(stage, reps, BATCH, "train", backward=True)
+            + check_attention(stage, reps, BATCH, "ops", backward=True, layout="separate")
+            + check_attention(stage, reps, BATCH, "ops", backward=True, layout="seq_major")
             + check_masked_ln(stage, reps, BATCH, "train", backward=True)
             + check_row_stats(stage, reps, BATCH, "search")
             + check_attention(stage, reps, SEARCH_BATCH, "search", backward=False)
@@ -429,7 +512,61 @@ def check_reference_net(ln_route: str):
     return errs
 
 
+def ops_path():
+    """The op-level API as a caller uses it, at every stage shape at the train
+    batch, forward and backward through autograd: ``fused_attention_packed``
+    on separate ``(B, N, W)`` q, k, v, ``fused_attention`` on the same values
+    as ``(B, N, H, D)`` tensors (its output and gradients must equal the
+    first call's: both run K6/K7), and ``fused_attention_qkv_t`` on an ``(N,
+    B, 3W)`` projection. The kernels' agreement with their plain versions is
+    held in ``check_attention``. Returns the launches of this window."""
+    import torch
+    from vit_search_torch.ops import attention as A
+    from vit_search_torch.ops import kernels
+
+    kernels.reset_launches()
+    for stage, (n, _, h, d) in enumerate(STAGES):
+        gen = torch.Generator(device="cuda").manual_seed(300 + stage)
+        w, scale = h * d, d ** -0.5
+        q, k, v, g = (torch.randn(BATCH, n, w, device="cuda", generator=gen).to(torch.bfloat16)
+                      for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = A.fused_attention_packed(*leaves, scale, h)
+        grads = torch.autograd.grad(out, leaves, g)
+        bnhd = [t.view(BATCH, n, h, d).clone().requires_grad_() for t in (q, k, v)]
+        out4 = A.fused_attention(*bnhd, scale)
+        grads4 = torch.autograd.grad(out4, bnhd, g.view(BATCH, n, h, d))
+        if out4.shape != (BATCH, n, h, d) or not torch.equal(out4.view(out.shape), out):
+            raise AssertionError(f"fused_attention stage {stage + 1}: not the output of "
+                                 f"fused_attention_packed on the same values")
+        if not all(torch.equal(a.view(b.shape), b) for a, b in zip(grads4, grads)):
+            raise AssertionError(f"fused_attention stage {stage + 1}: gradients differ")
+        qkv_t = torch.randn(n, BATCH, 3 * w, device="cuda", generator=gen).to(
+            torch.bfloat16).requires_grad_()
+        out_t = A.fused_attention_qkv_t(qkv_t, scale, h)
+        (grad_t,) = torch.autograd.grad(out_t, qkv_t, g.transpose(0, 1))
+        if out_t.shape != (n, BATCH, w) or grad_t.shape != qkv_t.shape:
+            raise AssertionError(f"fused_attention_qkv_t stage {stage + 1}: shapes "
+                                 f"{tuple(out_t.shape)}, {tuple(grad_t.shape)}")
+        if not (torch.isfinite(out_t).all() and torch.isfinite(grad_t).all()):
+            raise AssertionError(f"fused_attention_qkv_t stage {stage + 1}: non-finite")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(launches, PER_OPS_PASS, len(STAGES), "passes of the op-level API")
+    return {"passes": len(STAGES), "batch": BATCH, "launches": launches}
+
+
+def check_launches(launches: dict, per: dict, passes: int, what: str) -> None:
+    """Every kernel launched exactly ``per[name]`` times per pass."""
+    for name, count in per.items():
+        if launches[name] != count * passes:
+            raise AssertionError(f"{name}: {launches[name]} launches in {passes} {what}, "
+                                 f"expected {count} per pass")
+
+
 def train(steps: int, warmup: int):
+    import gc
+
     import numpy as np
     import torch
     from vit_search_torch.arch import presets, spaces
@@ -438,6 +575,7 @@ def train(steps: int, warmup: int):
     from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
                                         make_optimizer, make_train_step)
 
+    gc.collect()   # the last phase's model and optimizer off the card
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     net = presets.SUPERNET_SR_TINY_MH
@@ -470,19 +608,26 @@ def train(steps: int, warmup: int):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
 
     losses = [float(m["loss"]) for m in warm + metrics]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    for name, per_step in PER_STEP.items():
-        if launches[name] != per_step * steps:
-            raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, "
-                                 f"expected {per_step} per step")
+    check_launches(launches, PER_STEP, steps, "steps")
+    # one more step under the profiler, outside the counted window
+    busy_ms, wall_ms, classes, top = profile_kernels(
+        lambda: step(images, labels, sched.sample_packed(rng, BATCH)))
+    by_class = ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(classes.items(),
+                                                            key=lambda kv: -kv[1]))
+    log(f"train: profiled step {busy_ms:.1f} ms device-busy of "
+        f"{wall_ms:.1f} ms ({by_class})")
     return {"steps": steps, "warmup_steps": warmup, "batch": BATCH,
             "imgs_per_s": BATCH * steps / elapsed, "step_ms": 1e3 * elapsed / steps,
-            "warmup_s": warm_s, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "warmup_s": warm_s, "max_memory_allocated_bytes": peak,
             "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in warm + metrics],
-            "launches": launches}
+            "launches": launches,
+            "profiled_step": {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+                              "by_class_ms": classes, "top_kernels": top}}
 
 
 def sub_val_loader():
@@ -594,10 +739,7 @@ def search(ln_route: str, card: str):
         raise AssertionError(f"candidate MACs outside [{lo}, {TINY_BUDGET}]: {macs}")
     if not all(math.isfinite(i.score) and 0.0 <= i.score <= 100.0 for i in candidates):
         raise AssertionError(f"scores outside [0, 100]: {[i.score for i in candidates]}")
-    for kname, per in PER_FORWARD[ln_route].items():
-        if launches[kname] != per * forwards:
-            raise AssertionError(f"{kname}: {launches[kname]} launches in {forwards} "
-                                 f"forwards on ln_route={ln_route}, expected {per} per forward")
+    check_launches(launches, PER_FORWARD[ln_route], forwards, f"forwards on {ln_route}")
     # one chunk (a forward per sub-val batch) under the profiler
     busy_ms, wall_ms, classes, top = profile_kernels(lambda: evaluator.score(check_defs))
 
@@ -651,7 +793,11 @@ def main(argv=None) -> int:
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
     sys.path.insert(0, HERE)
-    from vit_search_torch.ops import kernels
+    from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
+
+    if sorted(KERNEL_NAMES) != sorted(k.name for k in kernels.KERNELS):
+        raise AssertionError(f"launch tables name {sorted(KERNEL_NAMES)}, the port registers "
+                             f"{sorted(k.name for k in kernels.KERNELS)}")
 
     card = card_line()
     print(card, flush=True)
@@ -674,6 +820,11 @@ def main(argv=None) -> int:
         report[f"reference_net_{ln_route}"] = errs = check_reference_net(ln_route)
         log(f"reference net, ln_route={ln_route}: card vs CPU {errs}")
 
+    report["ops"] = ops = ops_path()
+    log(f"op-level API: {ops['passes']} passes, launches K6/K7 "
+        f"{ops['launches']['attention_fwd']}/{ops['launches']['attention_bwd']}, K8/K9 "
+        f"{ops['launches']['attention_qkv_t_fwd']}/{ops['launches']['attention_qkv_t_bwd']}")
+
     report["train"] = tr = train(STEPS, WARMUP)
     print(f"train: {tr['imgs_per_s']:.1f} imgs/s ({tr['step_ms']:.1f} ms/step, batch "
           f"{BATCH}) peak memory {tr['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
@@ -688,7 +839,9 @@ def main(argv=None) -> int:
         "search logits, stats vs fused route", logits["stats"], logits["fused"], BF16_TOL)
 
     # each kernel entry reports the launches of the path that gives it its shape
-    runs = {"train": (tr, PER_STEP), "search": (searches["stats"], PER_FORWARD["stats"]),
+    runs = {"train": (tr, PER_STEP),
+            "ops": (ops, PER_OPS_PASS),
+            "search": (searches["stats"], PER_FORWARD["stats"]),
             "search_fused": (searches["fused"], PER_FORWARD["fused"])}
     by_name = {k.name: k for k in kernels.KERNELS}
     for e in entries:

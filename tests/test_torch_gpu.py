@@ -55,6 +55,101 @@ def test_attention_kernels_match_plain(cuda, n, c, h, d, dtype):
     _close(dqkv, A.attention_qkv_bwd_plain(qkv, do, scale, h), tol)
 
 
+# (N, C, heads, head_dim): small odd lengths, then the stage shapes
+LAYOUT_SHAPES = [(9, 0, 2, 16), (33, 0, 3, 8), (65, 0, 2, 128)] + STAGES
+LAYOUT_IDS = ["n9h2d16", "n33h3d8", "n65h2d128"] + IDS
+
+
+def _projection(cuda, n, h, d, dtype, b=4):
+    gen = torch.Generator(device=cuda).manual_seed(7 * n + h + d)
+    qkv = torch.randn(b, n, 3 * h * d, device=cuda, generator=gen).to(dtype)
+    do = torch.randn(b, n, h * d, device=cuda, generator=gen).to(dtype)
+    return qkv, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", LAYOUT_SHAPES, ids=LAYOUT_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_separate_qkv_kernels_match_plain(cuda, n, c, h, d, dtype):
+    """K6/K7 through ``fused_attention_packed``'s autograd function."""
+    qkv, do = _projection(cuda, n, h, d, dtype)
+    q, k, v = (t.contiguous() for t in qkv.split(h * d, dim=2))
+    scale = d ** -0.5
+    before = (A.K6.launches, A.K7.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.fused_attention_packed(*leaves, scale, h)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (A.K6.launches, A.K7.launches) == (before[0] + 1, before[1] + 1)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(out, A.attention_plain(q, k, v, scale, h), tol)
+    for got, want in zip(grads, A.attention_bwd_plain(q, k, v, do, scale, h)):
+        _close(got, want, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", LAYOUT_SHAPES, ids=LAYOUT_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_sequence_major_kernels_match_plain(cuda, n, c, h, d, dtype):
+    """K8/K9 through ``fused_attention_qkv_t``'s autograd function."""
+    qkv, do = _projection(cuda, n, h, d, dtype)
+    qkv_t, do_t = qkv.transpose(0, 1).contiguous(), do.transpose(0, 1).contiguous()
+    scale = d ** -0.5
+    before = (A.K8.launches, A.K9.launches)
+    leaf = qkv_t.clone().requires_grad_()
+    out = A.fused_attention_qkv_t(leaf, scale, h)
+    (grad,) = torch.autograd.grad(out, leaf, do_t)
+    torch.cuda.synchronize()
+    assert (A.K8.launches, A.K9.launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (n, 4, h * d)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(out, A.attention_qkv_t_plain(qkv_t, scale, h), tol)
+    _close(grad, A.attention_qkv_t_bwd_plain(qkv_t, do_t, scale, h), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+def test_layouts_agree_bit_for_bit(cuda, n, c, h, d):
+    """One template serves the three layouts: K6 and K8 give K1's output and
+    K7 and K9 K2's cotangent, bit for bit."""
+    qkv, do = _projection(cuda, n, h, d, torch.bfloat16)
+    scale = d ** -0.5
+    out = A.attention_qkv_fwd_cuda(qkv, scale, h)
+    dqkv = A.attention_qkv_bwd_cuda(qkv, do, scale, h)
+    q, k, v = (t.contiguous() for t in qkv.split(h * d, dim=2))
+    assert torch.equal(A.attention_fwd_cuda(q, k, v, scale, h), out)
+    assert torch.equal(torch.cat(A.attention_bwd_cuda(q, k, v, do, scale, h), dim=2), dqkv)
+    qkv_t, do_t = qkv.transpose(0, 1).contiguous(), do.transpose(0, 1).contiguous()
+    assert torch.equal(A.attention_qkv_t_fwd_cuda(qkv_t, scale, h).transpose(0, 1), out)
+    assert torch.equal(A.attention_qkv_t_bwd_cuda(qkv_t, do_t, scale, h).transpose(0, 1), dqkv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+def test_packed_forward_equals_plain_in_bf16(cuda, n, c, h, d):
+    """On a fixed bf16 input K1's output is the plain version's bit for bit,
+    as before the kernels took per-layout strides (error 0 in PERF.md)."""
+    qkv, _ = _projection(cuda, n, h, d, torch.bfloat16)
+    out = A.attention_qkv_fwd_cuda(qkv, d ** -0.5, h)
+    assert torch.equal(out, A.attention_qkv_plain(qkv, d ** -0.5, h))
+
+
+@pytest.mark.gpu
+def test_layout_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(2, 17, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k shape"):
+        A.attention_fwd_cuda(q, q[:, :9].contiguous(), q, 0.25, 2)
+    with pytest.raises(TypeError):
+        A.attention_bwd_cuda(q, q, q.float(), q, 0.25, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        A.attention_fwd_cuda(q, q.cpu(), q, 0.25, 2)
+    qkv_t = torch.zeros(17, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do_t shape"):
+        A.attention_qkv_t_bwd_cuda(qkv_t, torch.zeros_like(q), 0.25, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.attention_qkv_t_fwd_cuda(qkv_t.transpose(0, 1), 0.25, 2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
 @pytest.mark.parametrize("shared_mask", [False, True], ids=["per_example", "batch1"])

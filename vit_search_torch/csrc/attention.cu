@@ -1,18 +1,34 @@
-// Fused multi-head attention over the packed qkv projection, forward (K1) and
-// backward (K2), for Hopper (sm_90a).
+// Fused multi-head attention, forward and backward, for Hopper (sm_90a), over
+// three layouts of q, k and v.
 //
 // Replaces the Pallas TPU kernels of vit_search_tpu/ops/pallas/attention.py:
-//   K1  _fwd_kernel_qkv (attention.py:88), called through _fwd_call_qkv (:217-229)
-//   K2  _bwd_kernel_qkv (attention.py:108), called through _bwd_call_qkv (:232-244)
+//   K1  _fwd_kernel_qkv   (attention.py:88),  called through _fwd_call_qkv   (:217-229)
+//   K2  _bwd_kernel_qkv   (attention.py:108), called through _bwd_call_qkv   (:232-244)
+//   K6  _fwd_kernel       (attention.py:46),  called through _fwd_call       (:170-181)
+//   K7  _bwd_kernel       (attention.py:62),  called through _bwd_call       (:184-195)
+//   K8  _fwd_kernel_qkv_t (attention.py:306), called through _fwd_call_qkv_t (:402-415)
+//   K9  _bwd_kernel_qkv_t (attention.py:331), called through _bwd_call_qkv_t (:418-432)
 //
-// Layout: qkv is (B, N, 3W) with column blocks [q | k | v], each ordered by
-// head (W = H * D); the output is (B, N, W); the backward's cotangent is the
-// packed (B, N, 3W) dqkv, so the qkv projection's backward takes it as is.
+// Layouts (W = H * D; q, k and v each ordered by head):
+//   packed      K1/K2  qkv (B, N, 3W) with column blocks [q | k | v]; out and
+//                      dout (B, N, W); the cotangent is the packed dqkv
+//                      (B, N, 3W), so the qkv projection's backward takes it
+//   separate    K6/K7  q, k, v, out, dout each (B, N, W); dq, dk, dv the same
+//   seq-major   K8/K9  the packed layout with the first two axes swapped:
+//                      qkv (N, B, 3W), out and dout (N, B, W), dqkv (N, B, 3W)
+// One kernel body serves all three: each operand is a base pointer with a
+// stride per token and a stride per example, offsets in 64 bits (a
+// sequence-major token offset at B = 2048, stage 1, already reaches 3.0e8
+// elements). The layout is a template parameter, so each instantiation's
+// strides fold to expressions of n, heads and batch as in a kernel written for
+// that layout alone. The layouts run the same arithmetic in the same order and
+// agree bit for bit.
 //
 // Math, per (example, head), as the TPU kernels do it:
 //   forward   s = q k^T * scale (f32); p = softmax_rows(s) (f32);
-//             o = cast(p, dtype(v)) v, summed in f32, stored in dtype(qkv)
-//   backward  p recomputed in f32 from qkv (the only residual), all in f32:
+//             o = cast(p, dtype(v)) v, summed in f32, stored in dtype(q)
+//   backward  p recomputed in f32 from q, k (the inputs are the only
+//             residuals), all in f32:
 //             dv = p^T do;  dp = do v^T;  delta = rowsum(dp * p)
 //             ds = p * (dp - delta);  dq = ds k * scale;  dk = ds^T q * scale
 //
@@ -29,19 +45,23 @@
 // padded to D + 1 floats so that lanes walking rows hit distinct banks.
 // A warp owns one row at a time and keeps only that row of scores (N floats)
 // in shared memory:
-//   K1   warp per query row: scores over all keys, exact two-pass softmax,
-//        p rounded to v's dtype, then o with lanes over the head's columns.
-//   K2   the sum over queries that forms dk and dv cannot be carried from
-//        block to block as the TPU's sequential grid does, so the backward
-//        is split (the layout of tools/attn_lab.py:123-185):
-//        (a) warp per query row: recompute p, dp, delta = rowsum(dp * p) from
-//            the f32 p, write dq and the row's (max, sum, delta);
-//        (b) warp per key row: recompute p from the saved (max, sum), ds from
-//            delta, and sum dk, dv over all queries.
-//        Both recompute s with the same f32 operation order, so they agree
-//        on p bit for bit.
+//   forward   warp per query row: scores over all keys, exact two-pass
+//             softmax, p rounded to v's dtype, then o with lanes over the
+//             head's columns.
+//   backward  the sum over queries that forms dk and dv cannot be carried
+//             from block to block as the TPU's sequential grid does, so the
+//             backward is split (the layout of tools/attn_lab.py:123-185):
+//             (a) warp per query row: recompute p, dp, delta = rowsum(dp * p)
+//                 from the f32 p, write dq and the row's (max, sum, delta);
+//             (b) warp per key row: recompute p from the saved (max, sum), ds
+//                 from delta, and sum dk, dv over all queries.
+//             Both recompute s with the same f32 operation order, so they
+//             agree on p bit for bit.
 // N is any length (every loop masks its ragged end); D is a template
 // constant (8, 16, 32, 48, 64, 128) so the per-row vectors live in registers.
+// The TPU's group sizes and VMEM limits (_pick_group, _pick_group_t,
+// _params_t and VST_ATTN_T_VMEM_MB) budget VMEM blocks and have no
+// counterpart here: the block per (example, head) is the same for every layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,47 +100,73 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Stage columns [col, col + D) of every row of one example into f32 shared
-// memory with row stride `stride`.
+enum Layout { kPacked = 0, kSeparate = 1, kSeqMajor = 2 };
+
+// The strides, in elements, of one layout's operands: element (example b,
+// token i, column c) of an operand is at base[b * ex + i * tok + c]. `qkv`
+// strides serve q, k, v and their cotangents (rows of 3W in packed and
+// sequence-major, of W in separate); `wide` strides serve out and dout.
+template <int L>
+struct Strides {
+  long long tok, ex;
+  __device__ __forceinline__ static Strides qkv(int batch, int n, int w) {
+    const long long w3 = 3LL * w;
+    if (L == kSeparate) return {w, (long long)n * w};
+    if (L == kSeqMajor) return {batch * w3, w3};
+    return {w3, n * w3};
+  }
+  __device__ __forceinline__ static Strides wide(int batch, int n, int w) {
+    if (L == kSeqMajor) return {(long long)batch * w, w};
+    return {w, (long long)n * w};
+  }
+  template <typename P>
+  __device__ __forceinline__ P* row(P* base, int b, int i) const {
+    return base + (long long)b * ex + (long long)i * tok;
+  }
+};
+
+// Stage columns [0, D) of rows 0..n-1 from `rows` (token stride `row_stride`)
+// into f32 shared memory with row stride `stride`.
 template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ rows, long long row_stride,
-                                      int col, int n, float* __restrict__ dst, int stride) {
+__device__ __forceinline__ void stage(const T* __restrict__ rows, long long row_stride, int n,
+                                      float* __restrict__ dst, int stride) {
   for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
     const int j = idx / D, c = idx - j * D;
-    dst[j * stride + c] = to_f(rows[j * row_stride + col + c]);
+    dst[j * stride + c] = to_f(rows[j * row_stride + c]);
   }
 }
 
-template <typename T, int D>
+// q, k and v (or dq, dk and dv) are the column blocks of one tensor in the
+// packed and sequence-major layouts, W columns apart; separate ones otherwise.
+template <typename T, int D, int L>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads,
-                float scale) {
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ out, int batch, int n, int heads, float scale) {
   constexpr int KS = D + 1;
   constexpr int CD = (D + 31) / 32;
   extern __shared__ float smem[];
   float* Ks = smem;             // n x KS
   float* Vs = Ks + n * KS;      // n x D
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int W = heads * D;
-  const long long W3 = 3LL * W;
-  const T* base = qkv + (long long)b * n * W3;
-  stage<T, D>(base, W3, W + h * D, n, Ks, KS);
-  stage<T, D>(base, W3, 2 * W + h * D, n, Vs, D);
+  const Strides<L> in = Strides<L>::qkv(batch, n, heads * D);
+  const Strides<L> wide = Strides<L>::wide(batch, n, heads * D);
+  stage<T, D>(in.row(k, b, 0) + h * D, in.tok, n, Ks, KS);
+  stage<T, D>(in.row(v, b, 0) + h * D, in.tok, n, Vs, D);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* p = Vs + n * D + warp * n;  // this warp's row of scores / probabilities
   for (int i = warp; i < n; i += kWarps) {
-    const T* qr = base + i * W3 + h * D;
-    float q[D];
+    const T* qr = in.row(q, b, i) + h * D;
+    float qv[D];
 #pragma unroll
-    for (int c = 0; c < D; ++c) q[c] = to_f(qr[c]);
+    for (int c = 0; c < D; ++c) qv[c] = to_f(qr[c]);
     float mx = -INFINITY;
     for (int j = lane; j < n; j += 32) {
       const float* kr = Ks + j * KS;
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < D; ++c) s = fmaf(q[c], kr[c], s);
+      for (int c = 0; c < D; ++c) s = fmaf(qv[c], kr[c], s);
       s *= scale;
       p[j] = s;
       mx = fmaxf(mx, s);
@@ -147,7 +193,7 @@ attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads
         if (c < D) acc[t] = fmaf(pj, Vs[j * D + c], acc[t]);
       }
     }
-    T* orow = out + ((long long)b * n + i) * W + h * D;
+    T* orow = wide.row(out, b, i) + h * D;
 #pragma unroll
     for (int t = 0; t < CD; ++t) {
       const int c = lane + 32 * t;
@@ -157,35 +203,34 @@ attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads
   }
 }
 
-// K2 (a): dq and the per-row (max, sum, delta), warp per query row.
-template <typename T, int D>
+// backward (a): dq and the per-row (max, sum, delta), warp per query row.
+template <typename T, int D, int L>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                   T* __restrict__ dqkv, float4* __restrict__ rowstats, int n, int heads,
-                   float scale) {
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, T* __restrict__ dq,
+                   float4* __restrict__ rowstats, int batch, int n, int heads, float scale) {
   constexpr int KS = D + 1;
   constexpr int CD = (D + 31) / 32;
   extern __shared__ float smem[];
   float* Ks = smem;             // n x KS
   float* Vs = Ks + n * KS;      // n x KS
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int W = heads * D;
-  const long long W3 = 3LL * W;
-  const T* base = qkv + (long long)b * n * W3;
-  stage<T, D>(base, W3, W + h * D, n, Ks, KS);
-  stage<T, D>(base, W3, 2 * W + h * D, n, Vs, KS);
+  const Strides<L> in = Strides<L>::qkv(batch, n, heads * D);
+  const Strides<L> wide = Strides<L>::wide(batch, n, heads * D);
+  stage<T, D>(in.row(k, b, 0) + h * D, in.tok, n, Ks, KS);
+  stage<T, D>(in.row(v, b, 0) + h * D, in.tok, n, Vs, KS);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* p = Vs + n * KS + warp * 2 * n;
   float* dp = p + n;
   for (int i = warp; i < n; i += kWarps) {
-    const T* qr = base + i * W3 + h * D;
-    const T* gr = dout + ((long long)b * n + i) * W + h * D;
-    float q[D], g[D];
+    const T* qr = in.row(q, b, i) + h * D;
+    const T* gr = wide.row(dout, b, i) + h * D;
+    float qv[D], g[D];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      q[c] = to_f(qr[c]);
+      qv[c] = to_f(qr[c]);
       g[c] = to_f(gr[c]);
     }
     float mx = -INFINITY;
@@ -195,7 +240,7 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       float s = 0.f, d = 0.f;
 #pragma unroll
       for (int c = 0; c < D; ++c) {
-        s = fmaf(q[c], kr[c], s);
+        s = fmaf(qv[c], kr[c], s);
         d = fmaf(g[c], vr[c], d);
       }
       s *= scale;
@@ -232,7 +277,7 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
         if (c < D) acc[t] = fmaf(ds, Ks[j * KS + c], acc[t]);
       }
     }
-    T* drow = dqkv + ((long long)b * n + i) * W3 + h * D;
+    T* drow = in.row(dq, b, i) + h * D;
 #pragma unroll
     for (int t = 0; t < CD; ++t) {
       const int c = lane + 32 * t;
@@ -244,12 +289,13 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-// K2 (b): dk and dv, warp per key row, summing over every query.
-template <typename T, int D>
+// backward (b): dk and dv, warp per key row, summing over every query.
+template <typename T, int D, int L>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                    const float4* __restrict__ rowstats, T* __restrict__ dqkv, int n,
-                    int heads, float scale) {
+attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float4* __restrict__ rowstats,
+                    T* __restrict__ dk, T* __restrict__ dv, int batch, int n, int heads,
+                    float scale) {
   constexpr int KS = D + 1;
   constexpr int CD = (D + 31) / 32;
   extern __shared__ float smem[];
@@ -259,11 +305,10 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   float* Sum = Mx + n;          // n
   float* Delta = Sum + n;       // n
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int W = heads * D;
-  const long long W3 = 3LL * W;
-  const T* base = qkv + (long long)b * n * W3;
-  stage<T, D>(base, W3, h * D, n, Qs, KS);
-  stage<T, D>(dout + (long long)b * n * W, W, h * D, n, Gs, KS);
+  const Strides<L> in = Strides<L>::qkv(batch, n, heads * D);
+  const Strides<L> wide = Strides<L>::wide(batch, n, heads * D);
+  stage<T, D>(in.row(q, b, 0) + h * D, in.tok, n, Qs, KS);
+  stage<T, D>(wide.row(dout, b, 0) + h * D, wide.tok, n, Gs, KS);
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const float4 st = rowstats[(long long)blockIdx.x * n + i];
     Mx[i] = st.x;
@@ -276,12 +321,13 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   float* p = Delta + n + warp * 2 * n;
   float* ds = p + n;
   for (int j = warp; j < n; j += kWarps) {
-    const T* kr = base + j * W3 + W + h * D;
-    float k[D], v[D];
+    const T* kr = in.row(k, b, j) + h * D;
+    const T* vr = in.row(v, b, j) + h * D;
+    float kv[D], vv[D];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      k[c] = to_f(kr[c]);
-      v[c] = to_f(kr[W + c]);
+      kv[c] = to_f(kr[c]);
+      vv[c] = to_f(vr[c]);
     }
     for (int i = lane; i < n; i += 32) {
       const float* qr = Qs + i * KS;
@@ -289,8 +335,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       float s = 0.f, d = 0.f;
 #pragma unroll
       for (int c = 0; c < D; ++c) {
-        s = fmaf(qr[c], k[c], s);
-        d = fmaf(gr[c], v[c], d);
+        s = fmaf(qr[c], kv[c], s);
+        d = fmaf(gr[c], vv[c], d);
       }
       s *= scale;
       const float pij = expf(s - Mx[i]) / Sum[i];
@@ -313,13 +359,14 @@ attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
         }
       }
     }
-    T* drow = dqkv + ((long long)b * n + j) * W3 + h * D;
+    T* dkrow = in.row(dk, b, j) + h * D;
+    T* dvrow = in.row(dv, b, j) + h * D;
 #pragma unroll
     for (int t = 0; t < CD; ++t) {
       const int c = lane + 32 * t;
       if (c < D) {
-        drow[W + c] = from_f<T>(acck[t] * scale);
-        drow[2 * W + c] = from_f<T>(accv[t]);
+        dkrow[c] = from_f<T>(acck[t] * scale);
+        dvrow[c] = from_f<T>(accv[t]);
       }
     }
     __syncwarp();
@@ -339,34 +386,54 @@ int prepare(K kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <typename T, int D>
-int fwd_launch(const void* qkv, void* out, int batch, int n, int heads, float scale,
-               cudaStream_t stream) {
+// q, k and v (or their cotangents): the one qkv tensor `a` with the blocks W
+// columns apart, or (separate) the tensors a, b and c.
+template <typename P>
+struct QKV {
+  P *q, *k, *v;
+};
+
+template <int L, typename P>
+QKV<P> split(P* a, P* b, P* c, int w) {
+  if (L == kSeparate) return {a, b, c};
+  return {a, a + w, a + 2 * w};
+}
+
+template <typename T, int D, int L>
+int fwd_launch(const void* a, const void* b, const void* c, void* out, int batch, int n,
+               int heads, float scale, cudaStream_t stream) {
+  const QKV<const T> in = split<L>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                   static_cast<const T*>(c), heads * D);
   const size_t smem = fwd_smem(n, D);
-  int rc = prepare(attn_fwd_kernel<T, D>, smem);
+  int rc = prepare(attn_fwd_kernel<T, D, L>, smem);
   if (rc) return rc;
-  attn_fwd_kernel<T, D><<<batch * heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
+  attn_fwd_kernel<T, D, L><<<batch * heads, kThreads, smem, stream>>>(
+      in.q, in.k, in.v, static_cast<T*>(out), batch, n, heads, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int bwd_launch(const void* qkv, const void* dout, void* dqkv, void* rowstats, int batch,
-               int n, int heads, float scale, cudaStream_t stream) {
+template <typename T, int D, int L>
+int bwd_launch(const void* a, const void* b, const void* c, const void* dout, void* da,
+               void* db, void* dc, void* rowstats, int batch, int n, int heads, float scale,
+               cudaStream_t stream) {
+  const QKV<const T> in = split<L>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                   static_cast<const T*>(c), heads * D);
+  const QKV<T> grad = split<L>(static_cast<T*>(da), static_cast<T*>(db), static_cast<T*>(dc),
+                               heads * D);
+  const T* g = static_cast<const T*>(dout);
   size_t smem = dq_smem(n, D);
-  int rc = prepare(attn_bwd_dq_kernel<T, D>, smem);
+  int rc = prepare(attn_bwd_dq_kernel<T, D, L>, smem);
   if (rc) return rc;
-  attn_bwd_dq_kernel<T, D><<<batch * heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dqkv),
-      static_cast<float4*>(rowstats), n, heads, scale);
+  attn_bwd_dq_kernel<T, D, L><<<batch * heads, kThreads, smem, stream>>>(
+      in.q, in.k, in.v, g, grad.q, static_cast<float4*>(rowstats), batch, n, heads, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   smem = dkv_smem(n, D);
-  rc = prepare(attn_bwd_dkv_kernel<T, D>, smem);
+  rc = prepare(attn_bwd_dkv_kernel<T, D, L>, smem);
   if (rc) return rc;
-  attn_bwd_dkv_kernel<T, D><<<batch * heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
-      static_cast<const float4*>(rowstats), static_cast<T*>(dqkv), n, heads, scale);
+  attn_bwd_dkv_kernel<T, D, L><<<batch * heads, kThreads, smem, stream>>>(
+      in.q, in.k, in.v, g, static_cast<const float4*>(rowstats), grad.k, grad.v, batch, n,
+      heads, scale);
   return (int)cudaGetLastError();
 }
 
@@ -383,16 +450,17 @@ int bwd_launch(const void* qkv, const void* dout, void* dqkv, void* rowstats, in
     default: return (int)cudaErrorInvalidValue;      \
   }
 
-extern "C" {
+namespace {
 
-// dtype: 0 = float32, 1 = bfloat16. qkv (batch, n, 3 * heads * d), out
-// (batch, n, heads * d). Returns cudaGetLastError() (or cudaErrorInvalidValue
-// for a head size or length the kernel does not take).
-int vst_attn_fwd(const void* qkv, void* out, int batch, int n, int heads, int d,
-                 float scale, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a head size, length or dtype the kernels do not take).
+template <int L>
+int attn_fwd(const void* a, const void* b, const void* c, void* out, int batch, int n,
+             int heads, int d, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VST_FWD_BF16(D) return fwd_launch<__nv_bfloat16, D>(qkv, out, batch, n, heads, scale, s)
-#define VST_FWD_F32(D) return fwd_launch<float, D>(qkv, out, batch, n, heads, scale, s)
+#define VST_FWD_BF16(D) \
+  return fwd_launch<__nv_bfloat16, D, L>(a, b, c, out, batch, n, heads, scale, s)
+#define VST_FWD_F32(D) return fwd_launch<float, D, L>(a, b, c, out, batch, n, heads, scale, s)
   if (dtype == 1) { VST_SWITCH_D(d, VST_FWD_BF16) }
   if (dtype == 0) { VST_SWITCH_D(d, VST_FWD_F32) }
   return (int)cudaErrorInvalidValue;
@@ -400,20 +468,68 @@ int vst_attn_fwd(const void* qkv, void* out, int batch, int n, int heads, int d,
 #undef VST_FWD_F32
 }
 
-// dout (batch, n, heads * d) -> dqkv (batch, n, 3 * heads * d); rowstats is
-// float32 scratch of (batch * heads * n, 4).
-int vst_attn_bwd(const void* qkv, const void* dout, void* dqkv, void* rowstats, int batch,
-                 int n, int heads, int d, float scale, int dtype, void* stream) {
+// rowstats is float32 scratch of (batch * heads * n, 4).
+template <int L>
+int attn_bwd(const void* a, const void* b, const void* c, const void* dout, void* da,
+             void* db, void* dc, void* rowstats, int batch, int n, int heads, int d,
+             float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VST_BWD_BF16(D) \
-  return bwd_launch<__nv_bfloat16, D>(qkv, dout, dqkv, rowstats, batch, n, heads, scale, s)
-#define VST_BWD_F32(D) \
-  return bwd_launch<float, D>(qkv, dout, dqkv, rowstats, batch, n, heads, scale, s)
+#define VST_BWD_BF16(D)                                                                    \
+  return bwd_launch<__nv_bfloat16, D, L>(a, b, c, dout, da, db, dc, rowstats, batch, n,    \
+                                         heads, scale, s)
+#define VST_BWD_F32(D)                                                                    \
+  return bwd_launch<float, D, L>(a, b, c, dout, da, db, dc, rowstats, batch, n, heads,    \
+                                 scale, s)
   if (dtype == 1) { VST_SWITCH_D(d, VST_BWD_BF16) }
   if (dtype == 0) { VST_SWITCH_D(d, VST_BWD_F32) }
   return (int)cudaErrorInvalidValue;
 #undef VST_BWD_BF16
 #undef VST_BWD_F32
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: qkv (batch, n, 3 * heads * d) -> out (batch, n, heads * d).
+int vst_attn_fwd(const void* qkv, void* out, int batch, int n, int heads, int d, float scale,
+                 int dtype, void* stream) {
+  return attn_fwd<kPacked>(qkv, nullptr, nullptr, out, batch, n, heads, d, scale, dtype, stream);
+}
+
+// K2: dout (batch, n, heads * d) -> dqkv (batch, n, 3 * heads * d).
+int vst_attn_bwd(const void* qkv, const void* dout, void* dqkv, void* rowstats, int batch,
+                 int n, int heads, int d, float scale, int dtype, void* stream) {
+  return attn_bwd<kPacked>(qkv, nullptr, nullptr, dout, dqkv, nullptr, nullptr, rowstats,
+                           batch, n, heads, d, scale, dtype, stream);
+}
+
+// K6: q, k, v (batch, n, heads * d) -> out (batch, n, heads * d).
+int vst_attn_fwd_sep(const void* q, const void* k, const void* v, void* out, int batch, int n,
+                     int heads, int d, float scale, int dtype, void* stream) {
+  return attn_fwd<kSeparate>(q, k, v, out, batch, n, heads, d, scale, dtype, stream);
+}
+
+// K7: dout -> dq, dk, dv, every tensor (batch, n, heads * d).
+int vst_attn_bwd_sep(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                     void* dk, void* dv, void* rowstats, int batch, int n, int heads, int d,
+                     float scale, int dtype, void* stream) {
+  return attn_bwd<kSeparate>(q, k, v, dout, dq, dk, dv, rowstats, batch, n, heads, d, scale,
+                             dtype, stream);
+}
+
+// K8: qkv_t (n, batch, 3 * heads * d) -> out_t (n, batch, heads * d).
+int vst_attn_fwd_t(const void* qkv_t, void* out_t, int batch, int n, int heads, int d,
+                   float scale, int dtype, void* stream) {
+  return attn_fwd<kSeqMajor>(qkv_t, nullptr, nullptr, out_t, batch, n, heads, d, scale, dtype,
+                             stream);
+}
+
+// K9: dout_t (n, batch, heads * d) -> dqkv_t (n, batch, 3 * heads * d).
+int vst_attn_bwd_t(const void* qkv_t, const void* dout_t, void* dqkv_t, void* rowstats,
+                   int batch, int n, int heads, int d, float scale, int dtype, void* stream) {
+  return attn_bwd<kSeqMajor>(qkv_t, nullptr, nullptr, dout_t, dqkv_t, nullptr, nullptr,
+                             rowstats, batch, n, heads, d, scale, dtype, stream);
 }
 
 // Largest dynamic shared memory each kernel needs at (n, d), so the caller
