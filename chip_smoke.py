@@ -10,11 +10,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. every kernel against its plain PyTorch version at the three stage shapes
    of the ViT-ResNAS-Tiny supernet, at the batch each main path gives it
    (512 for the train step and the op-level API; 2048 for a scoring
-   forward: K1, K3 and K5), with stated tolerances, and timed with CUDA
-   events beside its bound and PyTorch's own call: ``ms`` is the device time
-   per launch (launches captured in a CUDA graph, inputs rotated past the L2
-   cache), ``call_ms`` the time per call of the wrapper, host overhead
-   included;
+   forward: K1, K3 and K5; 512 for the attention lab's K10-K12), with
+   stated tolerances, and timed with CUDA events beside its bound and
+   PyTorch's own call: ``ms`` is the device time per launch (launches
+   captured in a CUDA graph, inputs rotated past the L2 cache), ``call_ms``
+   the time per call of the wrapper, host overhead included;
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32,
    once on each masked-LN route (``fused``: K3/K4; ``stats``: K5);
@@ -36,11 +36,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    images (the last with 128 valid rows); every candidate in the MAC band,
    every score in [0, 100], launches per forward exact, and one chunk's
    logits within tolerance across the two routes;
-8. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
-   reports (``train``; ``ops``; ``search``, the stats route;
+8. lab: the attention lab (``vit_search_torch.tools.attn_lab``) at its
+   full-width shapes, ``main()`` (K11 against K2, K10 against K1, then each
+   timed) and ``main_split()`` (K12a + K12b against K2, then timed), its
+   lines on stderr; its errors within tolerance, every kernel launched
+   exactly as often as the run calls it, and the lab's kernels against their
+   plain versions at the lab's shapes;
+9. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
+   reports (``train``; ``ops``; ``lab``; ``search``, the stats route;
    ``search_fused``) and its launches per pass of that path (a train step,
-   one call of each op-level entry point, or a scoring forward), then the
-   last line ``{"ok": true, "device": {...}}``.
+   one call of each op-level entry point, one shape of the lab, or a
+   scoring forward), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -73,7 +79,8 @@ ATTENTION_KERNELS = {"packed": ("attention_qkv_fwd", "attention_qkv_bwd"),
 ATTENTION, MASKED_LNS = 3 * 6, 3 * 6 * 2 + 2 + 1
 KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd",
                 "masked_layer_norm_bwd", "row_sum_sumsq", "attention_fwd", "attention_bwd",
-                "attention_qkv_t_fwd", "attention_qkv_t_bwd")
+                "attention_qkv_t_fwd", "attention_qkv_t_bwd", "lab_fwd_t", "lab_bwd_t",
+                "lab_split_dq", "lab_split_dkv")
 
 
 def per_pass(**counts):
@@ -95,6 +102,14 @@ PER_FORWARD = {route: per_pass(attention_qkv_fwd=ATTENTION,
 # K8/K9)
 PER_OPS_PASS = per_pass(attention_fwd=2, attention_bwd=2, attention_qkv_t_fwd=1,
                         attention_qkv_t_bwd=1)
+# a shape of the attention lab, main() then main_split(): each variant is
+# called once to compare, once to warm up, then three times LAB_ITERS times;
+# K1/K2/K10/K11 are main()'s base and T, K2 is also main_split()'s base
+LAB_ITERS = 30
+LAB_CALLS = 2 + 3 * LAB_ITERS
+PER_LAB_SHAPE = per_pass(attention_qkv_fwd=LAB_CALLS, attention_qkv_bwd=2 * LAB_CALLS,
+                         lab_fwd_t=LAB_CALLS, lab_bwd_t=LAB_CALLS, lab_split_dq=LAB_CALLS,
+                         lab_split_dkv=LAB_CALLS)
 # search: --val-bs and --arch-batch of cli/evo_search.py, the Tiny budget of
 # scripts/vit-sr-nas/evolutionary_search/tiny.sh; population cut to 20 + 16
 VAL_BATCH, ARCH_BATCH, VAL_BATCHES, LAST_VALID = 256, 8, 3, 128
@@ -428,6 +443,74 @@ def check_row_stats(stage: int, reps: int, batch: int, path: str):
                  library_call="none: no single PyTorch call returns both sums")]
 
 
+def lab_cases():
+    """The lab's kernels: ``(name, wrapper, plain version, takes do, flops
+    per B*H*N*N*D)``."""
+    from vit_search_torch.tools import attn_lab as lab
+
+    return (("lab_fwd_t", lab.fwd_T_cuda, lab.fwd_T_plain, False, 4.0),
+            ("lab_bwd_t", lab.bwd_T_cuda, lab.bwd_T_plain, True, 10.0),
+            ("lab_split_dq", lab.split_dq_cuda, lab.split_dq_plain, True, 6.0),
+            ("lab_split_dkv", lab.split_dkv_cuda, lab.split_dkv_plain, True, 8.0))
+
+
+def check_lab(stage: int, reps: int):
+    """The attention lab's kernels (K10, K11, K12a, K12b) against their plain
+    versions at the train batch. Yardstick: SDPA's forward for K10, its
+    backward (forward+backward less forward) for K11 and for the pair K12a +
+    K12b, whose time as one call (``split_cuda``, the concatenation
+    included) the K12 entries carry as ``pair_ms``."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.tools import attn_lab as lab
+
+    n, _, h, d = STAGES[stage]
+    b, w, scale = BATCH, h * d, d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(400 + stage)
+    qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch.bfloat16)
+    do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch.bfloat16)
+    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16", "layout": "packed"}
+    tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
+
+    _, _, _, views, g_view = attention_layout("packed", qkv, do, h)
+    leaves = (qkv.clone().requires_grad_(),)
+    q, k, v = views(leaves)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(sdpa, reps)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g_view), reps) - sdpa_fwd_ms
+    pair_ms = graph_ms(lab.split_cuda, (qkv, do, scale, h), reps)
+    entries = []
+    for name, cuda_fn, plain, with_do, flops in lab_cases():
+        args = (qkv, do, scale, h) if with_do else (qkv, scale, h)
+        got = cuda_fn(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        err = compare(f"{name} stage {stage + 1} B={b}", got, want, BF16_TOL)
+        del got
+        bnd = bound(nbytes(*args[:-2], want), flops * b * h * n * n * d, PEAK_BF16)
+        e = dict(name=name, stage=stage + 1, shape=shape, path="lab", max_abs_err=err,
+                 tolerance=tolerance, ms=graph_ms(cuda_fn, args, reps),
+                 call_ms=time_ms(functools.partial(cuda_fn, *args), reps),
+                 plain_ms=time_ms(functools.partial(plain, *args), reps), bound_ms=bnd[0],
+                 bound_by=bnd[1])
+        if name == "lab_fwd_t":
+            e.update(library_ms=sdpa_fwd_ms, library_call="F.scaled_dot_product_attention forward")
+        else:
+            e.update(library_ms=sdpa_bwd_ms,
+                     library_call="F.scaled_dot_product_attention (forward+backward) - forward")
+        if name.startswith("lab_split"):
+            e.update(pair_ms=pair_ms, library_call=e["library_call"] + ": dq, dk and dv, the "
+                     "pair K12a + K12b's function (compare with pair_ms)")
+        entries.append(e)
+    return entries
+
+
 def check_kernels(stage: int, reps: int):
     """Every kernel at the shapes each main path gives it: the train step's
     batch (K1-K4; K5 at the same batch, the training step on the stats
@@ -436,6 +519,7 @@ def check_kernels(stage: int, reps: int):
     return (check_attention(stage, reps, BATCH, "train", backward=True)
             + check_attention(stage, reps, BATCH, "ops", backward=True, layout="separate")
             + check_attention(stage, reps, BATCH, "ops", backward=True, layout="seq_major")
+            + check_lab(stage, reps)
             + check_masked_ln(stage, reps, BATCH, "train", backward=True)
             + check_row_stats(stage, reps, BATCH, "search")
             + check_attention(stage, reps, SEARCH_BATCH, "search", backward=False)
@@ -554,6 +638,52 @@ def ops_path():
     launches = {k.name: k.launches for k in kernels.KERNELS}
     check_launches(launches, PER_OPS_PASS, len(STAGES), "passes of the op-level API")
     return {"passes": len(STAGES), "batch": BATCH, "launches": launches}
+
+
+def lab_path():
+    """The attention lab as its user runs it, at its full-width shapes:
+    ``main()`` and ``main_split()``, their lines on stderr. Every kernel of
+    the run launches exactly as often as the run calls it, and the lab's own
+    errors (the transposed and split kernels against K1/K2) are within the
+    bf16 tolerance of the base output's largest value. Then, outside the
+    counted window, the lab's kernels against their plain versions at the
+    lab's shapes, on the inputs ``main()`` drew."""
+    import contextlib
+
+    import torch
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.tools import attn_lab as lab
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        records = lab.main(iters=LAB_ITERS)
+        split = lab.main_split(iters=LAB_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(launches, PER_LAB_SHAPE, len(lab.SHAPES), "shapes of the lab")
+    atol = BF16_TOL[0]
+    for r, rs in zip(records, split):
+        for what, err, ref in (("bwd_err", r["bwd_err"], r["bwd_ref_max"]),
+                               ("fwd_err", r["fwd_err"], r["fwd_ref_max"]),
+                               ("split err", rs["err"], rs["ref_max"])):
+            if not err <= atol * ref:
+                raise AssertionError(f"lab {r['name']} {what} {err:.3e} above "
+                                     f"{atol} * max|base| = {atol * ref:.3e}")
+    # the plain versions' products in full f32, as in the kernel phase (the
+    # train and search phases turn TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain_errs = {}
+    for name, b, n, h, d in lab.SHAPES:
+        qkv, do = lab.inputs(torch.device("cuda"), b, n, h, d)
+        for kname, cuda_fn, plain, with_do, _ in lab_cases():
+            args = (qkv, do, d ** -0.5, h) if with_do else (qkv, d ** -0.5, h)
+            plain_errs[f"{kname} {name}"] = compare(f"{kname} lab {name}", cuda_fn(*args),
+                                                    plain(*args), BF16_TOL)
+    return {"shapes": [list(s) for s in lab.SHAPES], "iters": LAB_ITERS, "seconds": seconds,
+            "main": records, "main_split": split, "plain_max_abs_err": plain_errs,
+            "launches": launches}
 
 
 def check_launches(launches: dict, per: dict, passes: int, what: str) -> None:
@@ -794,6 +924,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
+    from vit_search_torch.tools import attn_lab  # noqa: F401
 
     if sorted(KERNEL_NAMES) != sorted(k.name for k in kernels.KERNELS):
         raise AssertionError(f"launch tables name {sorted(KERNEL_NAMES)}, the port registers "
@@ -837,10 +968,21 @@ def main(argv=None) -> int:
     report["search"] = searches
     report["search_logits_stats_vs_fused_max_abs_err"] = compare(
         "search logits, stats vs fused route", logits["stats"], logits["fused"], BF16_TOL)
+    # the lab last: its full-width plain comparisons stay off the train and
+    # search lines
+    report["lab"] = lab = lab_path()
+    ms = {r["name"]: (r["ms"], rs["ms"]) for r, rs in zip(lab["main"], lab["main_split"])}
+    log(f"lab: {len(lab['shapes'])} shapes in {lab['seconds']:.1f} s, launches K10/K11/K12a/"
+        f"K12b {lab['launches']['lab_fwd_t']}/{lab['launches']['lab_bwd_t']}/"
+        f"{lab['launches']['lab_split_dq']}/{lab['launches']['lab_split_dkv']}; ms per call "
+        + "; ".join(f"{name}: bwd base {a['bwd base']:.3f} T {a['bwd T']:.3f} split "
+                    f"{b['split']:.3f}, fwd base {a['fwd base']:.3f} T {a['fwd T']:.3f}"
+                    for name, (a, b) in ms.items()))
 
     # each kernel entry reports the launches of the path that gives it its shape
     runs = {"train": (tr, PER_STEP),
             "ops": (ops, PER_OPS_PASS),
+            "lab": (lab, PER_LAB_SHAPE),
             "search": (searches["stats"], PER_FORWARD["stats"]),
             "search_fused": (searches["fused"], PER_FORWARD["fused"])}
     by_name = {k.name: k for k in kernels.KERNELS}

@@ -17,6 +17,7 @@ from vit_search_torch.ops import kernels
 from vit_search_torch.ops import masked_layer_norm as M
 from vit_search_torch.ops import stats as S
 from vit_search_torch.ops.masking import make_channel_mask
+from vit_search_torch.tools import attn_lab as L
 
 STAGES = [(257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64)]
 IDS = ["stage1", "stage2", "stage3"]
@@ -288,3 +289,97 @@ def test_build_is_cached_by_source_hash(cuda):
     assert kernels.build_all() == {}
     for name in kernels.SOURCES:
         assert kernels._lib_path(name).exists()
+
+
+# the lab's kernels: the stage shapes, the lab's own even lengths, ragged
+# tails (N below one 32-query tile, one past it) and the widest head
+LAB_SHAPES = STAGES + [(258, 0, 6, 32), (9, 0, 2, 16), (33, 0, 3, 8), (65, 0, 2, 128)]
+LAB_IDS = IDS + ["n258h6d32", "n9h2d16", "n33h3d8", "n65h2d128"]
+LAB_KERNELS = {"K10": (L.fwd_T_cuda, L.fwd_T_plain, L.K10, False),
+               "K11": (L.bwd_T_cuda, L.bwd_T_plain, L.K11, True),
+               "K12a": (L.split_dq_cuda, L.split_dq_plain, L.K12A, True),
+               "K12b": (L.split_dkv_cuda, L.split_dkv_plain, L.K12B, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(LAB_KERNELS))
+@pytest.mark.parametrize("n,c,h,d", LAB_SHAPES, ids=LAB_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_lab_kernels_match_plain(cuda, kernel, n, c, h, d, dtype):
+    cuda_fn, plain, record, with_do = LAB_KERNELS[kernel]
+    qkv, do = _projection(cuda, n, h, d, dtype)
+    args = (qkv, do) if with_do else (qkv,)
+    before = record.launches
+    got = cuda_fn(*args, d ** -0.5, h)
+    torch.cuda.synchronize()
+    assert record.launches == before + 1
+    _close(got, plain(*args, d ** -0.5, h), 2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+def test_lab_backwards_agree_with_k2(cuda, n, c, h, d):
+    """K11 and the concatenated K12a + K12b compute K2's packed cotangent;
+    the split launches each of its kernels once."""
+    qkv, do = _projection(cuda, n, h, d, torch.bfloat16)
+    scale = d ** -0.5
+    want = A.attention_qkv_bwd_cuda(qkv, do, scale, h)
+    before = (L.K12A.launches, L.K12B.launches)
+    split = L.split_cuda(qkv, do, scale, h)
+    assert (L.K12A.launches, L.K12B.launches) == (before[0] + 1, before[1] + 1)
+    _close(L.bwd_T_cuda(qkv, do, scale, h), want)
+    _close(split, want)
+
+
+@pytest.mark.gpu
+def test_lab_fwd_T_is_not_k1_in_bf16(cuda):
+    """K10 keeps p in f32: in bf16 it differs from K1, in f32 it agrees."""
+    qkv, _ = _projection(cuda, 65, 12, 48, torch.bfloat16)
+    assert not torch.equal(L.fwd_T_cuda(qkv, 48 ** -0.5, 12), A.attention_qkv_fwd_cuda(
+        qkv, 48 ** -0.5, 12))
+    x = qkv.float()
+    _close(L.fwd_T_cuda(x, 48 ** -0.5, 12), A.attention_qkv_fwd_cuda(x, 48 ** -0.5, 12), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(LAB_KERNELS))
+def test_lab_wrappers_raise_on_what_the_kernels_do_not_take(cuda, kernel):
+    cuda_fn, _, record, with_do = LAB_KERNELS[kernel]
+    qkv = torch.zeros(2, 17, 3 * 2 * 24, device=cuda, dtype=torch.bfloat16)
+    do = torch.zeros(2, 17, 2 * 24, device=cuda, dtype=torch.bfloat16)
+    before = record.launches
+    with pytest.raises(ValueError, match="head_dim"):                     # d = 24
+        cuda_fn(*((qkv, do) if with_do else (qkv,)), 0.2, 2)
+    with pytest.raises(TypeError):
+        cuda_fn(*((qkv.half(), do.half()) if with_do else (qkv.half(),)), 0.2, 3)
+    if with_do:
+        with pytest.raises(TypeError):
+            cuda_fn(qkv, do.float(), 0.2, 3)
+        with pytest.raises(ValueError, match="do shape"):
+            cuda_fn(qkv, do[:, :9].contiguous(), 0.2, 3)
+    with pytest.raises(ValueError, match="shared memory"):                # N = 2048, d = 128
+        long = torch.zeros(1, 2048, 3 * 128, device=cuda, dtype=torch.bfloat16)
+        cuda_fn(*((long, long[..., :128].contiguous()) if with_do else (long,)), 0.1, 1)
+    assert record.launches == before
+
+
+@pytest.mark.gpu
+def test_lab_main_runs_on_the_card(cuda, capsys):
+    """The lab's entry points at small shapes: every line printed, errors
+    within the bf16 tolerance, and each kernel launched as often as the run
+    calls it (one numerics call, one warm-up and three timed runs of iters)."""
+    shapes = [("a", 4, 33, 2, 32), ("b", 4, 18, 3, 64)]
+    iters = 2
+    kernels.reset_launches()
+    records = L.main(shapes, iters=iters)
+    split = L.main_split(shapes, iters=iters)
+    torch.cuda.synchronize()
+    calls = len(shapes) * (2 + 3 * iters)
+    assert (A.K1.launches, A.K2.launches) == (calls, 2 * calls)
+    assert (L.K10.launches, L.K11.launches, L.K12A.launches, L.K12B.launches) == (calls,) * 4
+    out = capsys.readouterr().out
+    assert out.count("bwd_err=") == len(shapes) and out.count(" err=") == len(shapes)
+    for r in records:
+        assert r["bwd_err"] <= 2e-2 * r["bwd_ref_max"] and r["fwd_err"] <= 2e-2 * r["fwd_ref_max"]
+    for r in split:
+        assert r["err"] <= 2e-2 * r["ref_max"]

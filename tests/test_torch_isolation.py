@@ -25,7 +25,8 @@ def _port_sources():
 def test_port_imports_no_jax_in_a_fresh_process():
     code = ("import sys, vit_search_torch, vit_search_torch.models, vit_search_torch.train, "
             "vit_search_torch.data, vit_search_torch.convert, vit_search_torch.ops.kernels, "
-            "vit_search_torch.ops.stats, vit_search_torch.search; "
+            "vit_search_torch.ops.stats, vit_search_torch.search, "
+            "vit_search_torch.tools.attn_lab; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -104,6 +105,7 @@ def test_eval_and_search_need_cuda_unless_cpu_is_asked(no_cuda):
 def test_kernel_wrappers_refuse_cpu_tensors():
     from vit_search_torch.ops import attention, stats
     from vit_search_torch.ops import masked_layer_norm as ln
+    from vit_search_torch.tools import attn_lab
 
     with pytest.raises(ValueError, match="CUDA tensor"):
         attention.attention_qkv_fwd_cuda(torch.zeros(1, 8, 48), 0.25, 2)
@@ -112,6 +114,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                               torch.ones(16), torch.zeros(16), 1e-6)
     with pytest.raises(ValueError, match="CUDA tensor"):
         stats.row_sum_sumsq_cuda(torch.zeros(1, 8, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attn_lab.fwd_T_cuda(torch.zeros(1, 8, 48), 0.25, 2)
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, capsys):

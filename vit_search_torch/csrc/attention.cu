@@ -50,7 +50,9 @@
 //             head's columns.
 //   backward  the sum over queries that forms dk and dv cannot be carried
 //             from block to block as the TPU's sequential grid does, so the
-//             backward is split (the layout of tools/attn_lab.py:123-185):
+//             backward is two passes that share each query row's statistics
+//             (K12 in attn_lab.cu is the lab's split, whose dk/dv kernel
+//             recomputes them):
 //             (a) warp per query row: recompute p, dp, delta = rowsum(dp * p)
 //                 from the f32 p, write dq and the row's (max, sum, delta);
 //             (b) warp per key row: recompute p from the saved (max, sum), ds
