@@ -14,10 +14,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    stated tolerances, and timed with CUDA events beside its bound and
    PyTorch's own call: ``ms`` is the device time per launch (launches
    captured in a CUDA graph, inputs rotated past the L2 cache), ``call_ms``
-   the time per call of the wrapper, host overhead included;
+   the time per call of the wrapper, host overhead included. The inputs are
+   bf16, so K1/K2 and K6-K9 run their tensor-core bodies, which round p
+   and ds to bf16 as MMA operands where the plain versions keep them f32:
+   they agree within ``BF16_TOL``, not bit for bit;
 4. a small conv-stem supernet: the port's forward and one train step on the
-   card (kernels) against the same on the CPU (plain versions), in float32,
-   once on each masked-LN route (``fused``: K3/K4; ``stats``: K5);
+   card (kernels) against the same on the CPU (plain versions), in float32
+   (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
+   route (``fused``: K3/K4; ``stats``: K5);
 5. the op-level API at each stage shape, forward and backward through
    autograd: ``fused_attention_packed`` and ``fused_attention`` (K6/K7),
    ``fused_attention_qkv_t`` (K8/K9); outputs of the expected shapes, the

@@ -1,0 +1,114 @@
+"""The rounding contract of the bfloat16 attention kernels, on the CPU.
+
+On the card a bfloat16 call of K1/K2 (and K6-K9) runs the tensor-core body of
+``csrc/attention.cu``. Its forward rounds p where the TPU kernel does:
+normalised, then to bfloat16, before ``p @ v``. Its backward takes p and ds
+as bfloat16 operands of ``dv = p^T do``, ``dq = ds k`` and ``dk = ds^T q``,
+where the TPU kernel keeps them in float32; ``delta = rowsum(dp * p)`` comes
+from the float32 p and dp, and ``ds = p * (dp - delta)`` is formed in float32
+before it is rounded. The kernel cannot run here, so this file emulates that
+rounding in plain PyTorch and holds the emulation to the plain versions (the
+float32 function) within ``chip_smoke.BF16_TOL``, the rule the card holds the
+kernels to, and to the JAX kernel in bfloat16 (interpret mode on the CPU).
+Inputs are numpy arrays from a seed, rounded to bfloat16.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import BF16_TOL
+from vit_search_tpu.ops.pallas.attention import fused_attention_qkv as jax_attention_qkv
+from vit_search_torch.ops import attention as A
+
+# (N, heads, head_dim): the three stage shapes, then a ragged N with D = 8
+SHAPES = [(257, 6, 32), (65, 12, 48), (17, 12, 64), (33, 3, 8)]
+SHAPE_IDS = [f"n{n}h{h}d{d}" for n, h, d in SHAPES]
+JAX_SHAPES = [(65, 2, 48), (17, 3, 64)]
+BATCH = 2
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _inputs(n: int, h: int, d: int, seed: int):
+    """Seeded bfloat16 ``(B, N, 3W)`` projection and ``(B, N, W)`` cotangent
+    as numpy float32 arrays holding bfloat16 values."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(BATCH, n, 3 * h * d)).astype(np.float32)
+    do = rng.normal(size=(BATCH, n, h * d)).astype(np.float32)
+    return (_bf16(torch.tensor(qkv)).numpy(), _bf16(torch.tensor(do)).numpy())
+
+
+def emulate_fwd(qkv: torch.Tensor, scale: float, h: int) -> torch.Tensor:
+    """The tensor-core forward's rounding: s and softmax in f32, p
+    normalised then rounded to bf16, ``p @ v`` summed in f32, out in bf16."""
+    q, k, v = A._split(qkv, h)
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    o = torch.einsum("bhnm,bmhd->bnhd", _bf16(p), v)
+    return o.reshape(qkv.shape[0], qkv.shape[1], -1).to(torch.bfloat16)
+
+
+def emulate_bwd(qkv: torch.Tensor, do: torch.Tensor, scale: float, h: int) -> torch.Tensor:
+    """The tensor-core backward's rounding: p, dp, delta and ds in f32; p and
+    ds rounded to bf16 as operands of dv, dq and dk, each summed in f32."""
+    q, k, v = A._split(qkv, h)
+    g = do.float().view(q.shape)
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", g, v)
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    pb, dsb = _bf16(p), _bf16(ds)
+    dv = torch.einsum("bhnm,bnhd->bmhd", pb, g)
+    dq = torch.einsum("bhnm,bmhd->bnhd", dsb, k) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", dsb, q) * scale
+    return torch.stack((dq, dk, dv), dim=2).reshape(qkv.shape).to(torch.bfloat16)
+
+
+def _within_bf16_tol(got: torch.Tensor, want: torch.Tensor, name: str) -> None:
+    """``|got - want| <= atol * max|want| + rtol * |want|``, chip_smoke's rule."""
+    got, want = got.float(), want.float()
+    atol, rtol = BF16_TOL
+    err = (got - want).abs()
+    bound = atol * want.abs().max() + rtol * want.abs()
+    assert torch.isfinite(got).all(), name
+    assert (err <= bound).all(), f"{name}: max abs err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("n,h,d", SHAPES, ids=SHAPE_IDS)
+def test_forward_rounding_within_tolerance_of_plain(n, h, d):
+    qkv, _ = _inputs(n, h, d, seed=n * h + d)
+    x = torch.tensor(qkv).to(torch.bfloat16)
+    scale = d ** -0.5
+    _within_bf16_tol(emulate_fwd(x, scale, h), A.attention_qkv_plain(x, scale, h), "forward")
+
+
+@pytest.mark.parametrize("n,h,d", SHAPES, ids=SHAPE_IDS)
+def test_backward_rounding_within_tolerance_of_plain(n, h, d):
+    """p and ds as bf16 operands stay within BF16_TOL of the f32 backward."""
+    qkv, do = _inputs(n, h, d, seed=n * h + d + 1)
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    scale = d ** -0.5
+    got = emulate_bwd(x, g, scale, h)
+    want = A.attention_qkv_bwd_plain(x, g, scale, h)
+    _within_bf16_tol(got, want, "backward")
+    assert not torch.equal(got, want), "the operand rounding should move some gradient"
+
+
+@pytest.mark.parametrize("n,h,d", JAX_SHAPES, ids=[f"n{n}h{h}d{d}" for n, h, d in JAX_SHAPES])
+def test_rounding_within_tolerance_of_jax_in_bf16(n, h, d):
+    """The JAX kernel on bfloat16 inputs (interpret mode on the CPU) against
+    the emulated tensor-core rounding."""
+    qkv, do = _inputs(n, h, d, seed=7 * n + d)
+    scale = d ** -0.5
+    out_ref, vjp = jax.vjp(lambda a: jax_attention_qkv(a, scale, h),
+                           jnp.asarray(qkv, jnp.bfloat16))
+    (dqkv_ref,) = vjp(jnp.asarray(do, jnp.bfloat16))
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    _within_bf16_tol(emulate_fwd(x, scale, h), torch.from_numpy(np.asarray(out_ref, np.float32)),
+                     "forward")
+    _within_bf16_tol(emulate_bwd(x, g, scale, h),
+                     torch.from_numpy(np.asarray(dqkv_ref, np.float32)), "backward")

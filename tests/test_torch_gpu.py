@@ -125,14 +125,118 @@ def test_layouts_agree_bit_for_bit(cuda, n, c, h, d):
     assert torch.equal(A.attention_qkv_t_bwd_cuda(qkv_t, do_t, scale, h).transpose(0, 1), dqkv)
 
 
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at each element's magnitude: the gap to the next bf16."""
+    a = x.abs().to(torch.bfloat16)
+    return (a.view(torch.int16) + 1).view(torch.bfloat16).float() - a.float()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
-def test_packed_forward_equals_plain_in_bf16(cuda, n, c, h, d):
-    """On a fixed bf16 input K1's output is the plain version's bit for bit,
-    as before the kernels took per-layout strides (error 0 in PERF.md)."""
-    qkv, _ = _projection(cuda, n, h, d, torch.bfloat16)
-    out = A.attention_qkv_fwd_cuda(qkv, d ** -0.5, h)
-    assert torch.equal(out, A.attention_qkv_plain(qkv, d ** -0.5, h))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_packed_forward_within_one_bf16_step_of_plain(cuda, n, c, h, d, dtype):
+    """K1 sums in the tensor cores' order, so it no longer gives the plain
+    version's bits in bf16. Each output element is within one bf16 step of
+    the plain one, plus one bf16 step of each p it sums over: where the two
+    sides' f32 p straddle a bf16 rounding point they round it one step
+    apart, which moves a near-zero output by more than its own step. In f32
+    (the CUDA-core body) it agrees to 1e-4."""
+    qkv, _ = _projection(cuda, n, h, d, dtype)
+    scale = d ** -0.5
+    out = A.attention_qkv_fwd_cuda(qkv, scale, h)
+    want = A.attention_qkv_plain(qkv, scale, h)
+    if dtype == torch.float32:
+        _close(out, want, 1e-4)
+        return
+    q, k, v = A._split(qkv, h)
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    p_steps = torch.einsum("bhnm,bmhd->bnhd", _bf16_step(p), v.abs()).reshape(want.shape)
+    err = (out.float() - want.float()).abs()
+    assert (err <= _bf16_step(want) + p_steps).all(), float(err.max())
+
+
+# ragged lengths on both sides of the 16- and 64-row tile edges, D = 8 (the
+# head dim padded to 16 in shared memory), and N = 577 at D = 32 (the 336 px
+# finetune's stage 1, near the backward's shared-memory limit)
+RAGGED = [(8, 2, 32), (15, 2, 16), (16, 2, 16), (17, 2, 64), (63, 2, 48), (64, 2, 48),
+          (65, 2, 48), (257, 2, 32), (258, 2, 32), (33, 3, 8), (577, 2, 32)]
+RAGGED_IDS = [f"n{n}h{h}d{d}" for n, h, d in RAGGED]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,d", RAGGED, ids=RAGGED_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernels_take_ragged_lengths(cuda, n, h, d, dtype):
+    """K1/K2 against the plain versions, and (bf16) K6-K9 against K1/K2 bit
+    for bit, at lengths and widths off the tile edges."""
+    qkv, do = _projection(cuda, n, h, d, dtype, b=3)
+    scale = d ** -0.5
+    out = A.attention_qkv_fwd_cuda(qkv, scale, h)
+    dqkv = A.attention_qkv_bwd_cuda(qkv, do, scale, h)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(out, A.attention_qkv_plain(qkv, scale, h), tol)
+    _close(dqkv, A.attention_qkv_bwd_plain(qkv, do, scale, h), tol)
+    if dtype == torch.bfloat16:
+        q, k, v = (t.contiguous() for t in qkv.split(h * d, dim=2))
+        assert torch.equal(A.attention_fwd_cuda(q, k, v, scale, h), out)
+        assert torch.equal(torch.cat(A.attention_bwd_cuda(q, k, v, do, scale, h), dim=2), dqkv)
+        qkv_t, do_t = qkv.transpose(0, 1).contiguous(), do.transpose(0, 1).contiguous()
+        assert torch.equal(A.attention_qkv_t_fwd_cuda(qkv_t, scale, h).transpose(0, 1), out)
+        assert torch.equal(A.attention_qkv_t_bwd_cuda(qkv_t, do_t, scale, h).transpose(0, 1),
+                           dqkv)
+
+
+@pytest.mark.gpu
+def test_attention_backward_is_deterministic(cuda):
+    """No atomics: the same inputs give the same bits, call after call."""
+    qkv, do = _projection(cuda, 257, 6, 32, torch.bfloat16, b=8)
+    first = A.attention_qkv_bwd_cuda(qkv, do, 32 ** -0.5, 6)
+    for _ in range(3):
+        assert torch.equal(A.attention_qkv_bwd_cuda(qkv, do, 32 ** -0.5, 6), first)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts 2 bytes past 16."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = flat.view(-1)[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_on_a_misaligned_operand(cuda):
+    """16-byte copies need 16-byte aligned operands: the wrappers refuse an
+    unaligned one by name rather than take a slower path."""
+    qkv = torch.zeros(2, 17, 3 * 2 * 32, device=cuda, dtype=torch.bfloat16)
+    do = torch.zeros(2, 17, 2 * 32, device=cuda, dtype=torch.bfloat16)
+    q = do.clone()
+    before = (A.K1.launches, A.K2.launches, A.K6.launches, A.K7.launches)
+    with pytest.raises(ValueError, match="qkv must be 16-byte aligned"):
+        A.attention_qkv_fwd_cuda(_misaligned(qkv), 0.25, 2)
+    with pytest.raises(ValueError, match="do must be 16-byte aligned"):
+        A.attention_qkv_bwd_cuda(qkv, _misaligned(do), 0.25, 2)
+    with pytest.raises(ValueError, match="v must be 16-byte aligned"):
+        A.attention_fwd_cuda(q, q, _misaligned(q), 0.25, 2)
+    with pytest.raises(ValueError, match="k must be 16-byte aligned"):
+        A.attention_bwd_cuda(q, _misaligned(q), q, q, 0.25, 2)
+    with pytest.raises(ValueError, match="qkv_t must be 16-byte aligned"):
+        A.attention_qkv_t_fwd_cuda(_misaligned(qkv.transpose(0, 1).contiguous()), 0.25, 2)
+    assert (A.K1.launches, A.K2.launches, A.K6.launches, A.K7.launches) == before
+
+
+@pytest.mark.gpu
+def test_attention_shared_memory_limit_is_per_dtype(cuda):
+    """At D = 32 the bf16 backward fits up to N = 624 and the f32 one further:
+    the wrapper asks the library for the shared memory of the dtype's body
+    and refuses only what does not fit."""
+    def call(n, dtype):
+        qkv = torch.zeros(1, n, 3 * 32, device=cuda, dtype=dtype)
+        return A.attention_qkv_bwd_cuda(qkv, qkv[..., :32].contiguous(), 0.2, 1)
+
+    assert torch.isfinite(call(624, torch.bfloat16).float()).all()
+    with pytest.raises(ValueError, match="shared memory"):
+        call(625, torch.bfloat16)
+    assert torch.isfinite(call(625, torch.float32)).all()
 
 
 @pytest.mark.gpu

@@ -16,8 +16,12 @@ probabilities from the inputs (its only residuals):
 
 Every kernel is in ``csrc/attention.cu`` and computes the same function:
 scores and softmax in float32, probabilities cast to the value dtype before
-``p @ v`` (summed in float32); the backward all in float32 from the
-recomputed float32 ``p``. The JAX module's VMEM budgeting (``_pick_group``,
+``p @ v`` (summed in float32); the backward from the recomputed float32
+``p``. On the card a bfloat16 call takes the tensor-core body, whose
+backward rounds ``p`` and ``ds`` to bfloat16 as operands of its products
+(``delta`` and ``ds`` are still formed in float32), and a float32 call the
+CUDA-core body, all in float32. The plain versions are the float32
+function. The JAX module's VMEM budgeting (``_pick_group``,
 ``_pick_group_t``, ``_params_t`` and ``VST_ATTN_T_VMEM_MB``) sizes TPU
 blocks and has no counterpart: on the card every layout runs one block per
 (example, head).
@@ -152,7 +156,7 @@ def _lib():
         for fn in (lib.vst_attn_fwd, lib.vst_attn_bwd, lib.vst_attn_fwd_sep,
                    lib.vst_attn_bwd_sep, lib.vst_attn_fwd_t, lib.vst_attn_bwd_t):
             fn.restype = i
-        lib.vst_attn_smem_bytes.argtypes = [i, i]
+        lib.vst_attn_smem_bytes.argtypes = [i, i, i]
         lib.vst_attn_smem_bytes.restype = ctypes.c_longlong
         lib._vst_typed = True
     return lib
@@ -170,7 +174,7 @@ def _check(x: torch.Tensor, name: str, parts: int, num_heads: int, seq_major: bo
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
     lib = _lib()
-    smem = lib.vst_attn_smem_bytes(n, d)
+    smem = lib.vst_attn_smem_bytes(n, d, kernels.DTYPE_CODES[x.dtype])
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"attention kernel needs {smem} bytes of shared memory at "
                          f"N={n}, d={d}; a block has {MAX_SMEM_BYTES}")
@@ -194,8 +198,11 @@ def _tail(x: torch.Tensor, batch: int, n: int, num_heads: int, d: int, scale: fl
 
 
 def _rowstats(x: torch.Tensor, batch: int, n: int, num_heads: int) -> torch.Tensor:
-    """A backward's scratch: each query row's (max, sum, delta), float32."""
-    return torch.empty((batch * num_heads * n, 4), dtype=torch.float32, device=x.device)
+    """A backward's scratch: each query row's (max, sum, delta), float32, for
+    the float32 body's two launches. The bfloat16 body keeps them on chip
+    and never reads its (empty) scratch."""
+    rows = batch * num_heads * n if x.dtype == torch.float32 else 0
+    return torch.empty((rows, 4), dtype=torch.float32, device=x.device)
 
 
 def attention_qkv_fwd_cuda(qkv: torch.Tensor, scale: float, num_heads: int) -> torch.Tensor:
@@ -210,7 +217,7 @@ def attention_qkv_fwd_cuda(qkv: torch.Tensor, scale: float, num_heads: int) -> t
 
 def attention_qkv_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, scale: float,
                            num_heads: int) -> torch.Tensor:
-    """Launch K2 (its dq pass, then its dk/dv pass)."""
+    """Launch K2 (bf16: one launch; f32: its dq pass, then its dk/dv pass)."""
     b, n, d, lib = _check(qkv, "qkv", 3, num_heads)
     _check_like(do, "do", qkv, (b, n, num_heads * d))
     dqkv = torch.empty_like(qkv)
@@ -236,7 +243,8 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
 
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                        scale: float, num_heads: int) -> Tuple[torch.Tensor, ...]:
-    """Launch K7 (its dq pass, then its dk/dv pass): ``(dq, dk, dv)``."""
+    """Launch K7 (bf16: one launch; f32: its dq pass, then its dk/dv pass):
+    ``(dq, dk, dv)``."""
     b, n, d, lib = _check(q, "q", 1, num_heads)
     for t, name in ((k, "k"), (v, "v"), (do, "do")):
         _check_like(t, name, q, q.shape)
@@ -260,8 +268,8 @@ def attention_qkv_t_fwd_cuda(qkv_t: torch.Tensor, scale: float, num_heads: int) 
 
 def attention_qkv_t_bwd_cuda(qkv_t: torch.Tensor, do_t: torch.Tensor, scale: float,
                              num_heads: int) -> torch.Tensor:
-    """Launch K9 (its dq pass, then its dk/dv pass): the ``(N, B, 3W)``
-    cotangent."""
+    """Launch K9 (bf16: one launch; f32: its dq pass, then its dk/dv pass):
+    the ``(N, B, 3W)`` cotangent."""
     b, n, d, lib = _check(qkv_t, "qkv_t", 3, num_heads, seq_major=True)
     _check_like(do_t, "do_t", qkv_t, (n, b, num_heads * d))
     dqkv_t = torch.empty_like(qkv_t)
