@@ -18,15 +18,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16, so K1/K2 and K6-K9 run their tensor-core bodies, which round p
    and ds to bf16 as MMA operands where the plain versions keep them f32:
    they agree within ``BF16_TOL``, not bit for bit;
+   Beside the stage shapes, the attention kernels at shapes past the
+   supernet's: the 392 px finetune's stage 1 (N = 785, D = 32, where the
+   bf16 backward takes the split route), K1/K2 in bf16 and float32 and
+   K6-K9 in bf16, and K1/K2 at a head dim of 24;
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32
    (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
-   route (``fused``: K3/K4; ``stats``: K5);
+   route (``fused``: K3/K4; ``stats``: K5), then in bfloat16 (the
+   tensor-core bodies) on the fused route: loss, gradient norm and logits
+   within ``REF_NET_BF16_TOL``;
 5. the op-level API at each stage shape, forward and backward through
    autograd: ``fused_attention_packed`` and ``fused_attention`` (K6/K7),
    ``fused_attention_qkv_t`` (K8/K9); outputs of the expected shapes, the
    ``(B, N, H, D)`` entry point equal to the ``(B, N, W)`` one, and one
    launch of each kernel per call (the plain comparisons are phase 3's);
+   then (``shapes``) ``fused_attention_qkv`` (K1/K2) at the 392 px
+   finetune's three stage shapes in both dtypes and at a head dim of 24,
+   and the other two layouts' entry points (K6-K9) at its stage 1 in bf16;
 6. train: the full-width ``SUPERNET_SR_TINY_MH`` supernet at 224px, batch
    512, 32 examples per architecture, token mixup, drop_path 0.2, tanh GELU,
    bf16 compute, AdamW; every loss finite, and each kernel's launch count
@@ -47,10 +56,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exactly as often as the run calls it, and the lab's kernels against their
    plain versions at the lab's shapes;
 9. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
-   reports (``train``; ``ops``; ``lab``; ``search``, the stats route;
-   ``search_fused``) and its launches per pass of that path (a train step,
-   one call of each op-level entry point, one shape of the lab, or a
-   scoring forward), then the last line ``{"ok": true, "device": {...}}``.
+   reports (``train``; ``ops``; ``shapes``; ``lab``; ``search``, the stats
+   route; ``search_fused``) and its launches per pass of that path (a train
+   step, one call of each op-level entry point, one call at one of the
+   extra shapes, one shape of the lab, or a scoring forward), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -106,6 +116,22 @@ PER_FORWARD = {route: per_pass(attention_qkv_fwd=ATTENTION,
 # K8/K9)
 PER_OPS_PASS = per_pass(attention_fwd=2, attention_bwd=2, attention_qkv_t_fwd=1,
                         attention_qkv_t_bwd=1)
+# (label, batch, N, heads, head_dim) past the supernet's shapes: the 392 px
+# finetune's stages (medium_img-size@392.sh's network_def, its widest heads)
+# and a head dim of 24
+FINETUNE_392 = (("392px stage 1", 64, 785, 8, 32), ("392px stage 2", 64, 197, 16, 48),
+                ("392px stage 3", 64, 50, 16, 64))
+HEAD_DIM_24 = ("head dim 24", BATCH, 257, 8, 24)
+# the calls of the `shapes` path, (shape, dtype, layout), each one forward and
+# backward through the layout's autograd entry point: the 392 px stages in
+# both dtypes packed (K1/K2), stage 1 in bf16 separate (K6/K7) and
+# sequence-major (K8/K9), head dim 24 packed
+EXTRA_CALLS = ([(shape, dtype, "packed") for shape in FINETUNE_392
+                for dtype in ("bfloat16", "float32")]
+               + [(FINETUNE_392[0], "bfloat16", layout) for layout in ("separate", "seq_major")]
+               + [(HEAD_DIM_24, "bfloat16", "packed")])
+# launches of each kernel per call that runs it
+PER_SHAPES_CALL = per_pass(**{name: 1 for names in ATTENTION_KERNELS.values() for name in names})
 # a shape of the attention lab, main() then main_split(): each variant is
 # called once to compare, once to warm up, then three times LAB_ITERS times;
 # K1/K2/K10/K11 are main()'s base and T, K2 is also main_split()'s base
@@ -133,7 +159,14 @@ L2_BYTES = 50 * 2**20
 # tolerance: |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|
 BF16_TOL = (2e-2, 2e-2)
 F32_SUM_TOL = (1e-3, 1e-3)   # gw/gb: the order of the sum differs
+F32_TOL = 1e-4               # float32 attention (CUDA cores): atol and rtol
 STATS_TOL = (1e-4, 1e-4)
+# the small net in bf16, card against CPU: on the CPU alone bf16 moves the
+# logits by 0.9% of their largest value from f32, the loss by 1.7e-4 and the
+# gradient norm by 6.6e-4 (relative); the card rounds at other places
+# (tensor-core attention, cuBLAS, cuDNN), so allow about three times that
+# for the logits and more for the two scalars
+REF_NET_BF16_TOL = {"logits": (3e-2, 3e-2), "loss": 2e-3, "grad_norm": 5e-3}
 
 
 def log(msg: str) -> None:
@@ -184,7 +217,7 @@ def graph_ms(fn, args: tuple, reps: int) -> float:
 
 # kernel classes of a profile, matched in order on the kernel's name
 KERNEL_CLASSES = (("attention forward (K1/K6/K8)", ("attn_fwd_kernel",)),
-                  ("attention backward (K2/K7/K9)", ("attn_bwd_",)),
+                  ("attention backward (K2/K7/K9)", ("attn_bwd_", "attn_split_")),
                   ("K5 row statistics", ("row_stats_kernel",)),
                   ("K3/K4 masked LN", ("masked_ln_",)),
                   ("convolution", ("fprop", "conv", "cudnn")),
@@ -289,27 +322,42 @@ def flat(grads):
     return torch.cat(grads, dim=2) if isinstance(grads, tuple) else grads
 
 
-def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool,
-                    layout: str = "packed"):
+def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
+                    layout: str = "packed", nhd=None, dtype: str = "bfloat16"):
     """The attention kernels of ``layout`` (K1/K2 packed, K6/K7 separate,
     K8/K9 sequence-major; the backward where ``backward``) against their
-    plain versions at ``batch``."""
+    plain versions at ``batch``: at stage ``stage`` (0-2) of the supernet, or
+    at ``nhd = (N, heads, head_dim)`` under the label ``stage``."""
     import torch
     import torch.nn.functional as F
+    from vit_search_torch.ops import attention as A
 
-    n, _, h, d = STAGES[stage]
+    if nhd is None:
+        n, _, h, d = STAGES[stage]
+        stage, seed = stage + 1, stage
+    else:
+        n, h, d = nhd
+        seed = n + d
     b, w = batch, h * d
     scale = d ** -0.5
-    gen = torch.Generator(device="cuda").manual_seed(stage)
-    qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch.bfloat16)
-    do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch.bfloat16)
+    torch_dtype = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch_dtype)
+    do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch_dtype)
     ins, g, (entry, fwd_cuda, bwd_cuda, fwd_plain, bwd_plain), views, g_view = attention_layout(
         layout, qkv, do, h)
     del qkv, do
     fwd_name, bwd_name = ATTENTION_KERNELS[layout]
-    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16", "layout": layout}
-    tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
-    what = f"{fwd_name} stage {stage + 1} B={b}"
+    shape = {"B": b, "N": n, "H": h, "D": d, "dtype": dtype, "layout": layout}
+    if dtype == "bfloat16":
+        tol, peak = BF16_TOL, PEAK_BF16
+        tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
+        if backward:
+            shape["bwd_route"] = "split" if A.backward_is_split(n, d) else "one launch"
+    else:
+        tol, peak = (F32_TOL, F32_TOL), PEAK_F32
+        tolerance = f"abs <= {F32_TOL}*max|ref| + {F32_TOL}*|ref| (f32, CUDA cores)"
+    what = f"{fwd_name} stage {stage} B={b}"
 
     # through autograd, as a caller uses it: the forward launches the forward
     # kernel, the backward the backward kernel; a scoring forward runs under
@@ -322,7 +370,7 @@ def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool
         grads = grads[0] if len(grads) == 1 else grads
     torch.cuda.synchronize()
     ref_out = fwd_plain(*ins, scale, h)
-    err_fwd = compare(what, out, ref_out, BF16_TOL)
+    err_fwd = compare(what, out, ref_out, tol)
     del out, leaves
 
     fwd_call_ms = time_ms(lambda: fwd_cuda(*ins, scale, h), reps)
@@ -338,8 +386,8 @@ def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool
 
     with torch.no_grad():
         lib_fwd_ms = time_ms(sdpa, reps)
-    bfwd = bound(nbytes(*ins, ref_out), 4.0 * b * h * n * n * d, PEAK_BF16)
-    entries = [dict(name=fwd_name, stage=stage + 1, shape=shape, path=path,
+    bfwd = bound(nbytes(*ins, ref_out), 4.0 * b * h * n * n * d, peak)
+    entries = [dict(name=fwd_name, stage=stage, shape=shape, path=path,
                     max_abs_err=err_fwd, tolerance=tolerance, ms=fwd_ms, call_ms=fwd_call_ms,
                     plain_ms=plain_fwd_ms, bound_ms=bfwd[0], bound_by=bfwd[1],
                     library_ms=lib_fwd_ms,
@@ -348,15 +396,14 @@ def check_attention(stage: int, reps: int, batch: int, path: str, backward: bool
         return entries
 
     ref_grads = bwd_plain(*ins, g, scale, h)
-    err_bwd = compare(f"{bwd_name} stage {stage + 1} B={b}", flat(grads), flat(ref_grads),
-                      BF16_TOL)
+    err_bwd = compare(f"{bwd_name} stage {stage} B={b}", flat(grads), flat(ref_grads), tol)
     bwd_call_ms = time_ms(lambda: bwd_cuda(*ins, g, scale, h), reps)
     bwd_ms = graph_ms(bwd_cuda, (*ins, g, scale, h), reps)
     plain_bwd_ms = time_ms(lambda: bwd_plain(*ins, g, scale, h), reps)
     lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sleaves, g_view), reps)
-    bbwd = bound(nbytes(*ins, g, flat(ref_grads)), 10.0 * b * h * n * n * d, PEAK_BF16)
+    bbwd = bound(nbytes(*ins, g, flat(ref_grads)), 10.0 * b * h * n * n * d, peak)
     entries.append(dict(
-        name=bwd_name, stage=stage + 1, shape=shape, path=path,
+        name=bwd_name, stage=stage, shape=shape, path=path,
         max_abs_err=err_bwd, tolerance=tolerance, ms=bwd_ms, call_ms=bwd_call_ms,
         plain_ms=plain_bwd_ms, bound_ms=bbwd[0], bound_by=bbwd[1],
         library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
@@ -515,6 +562,21 @@ def check_lab(stage: int, reps: int):
     return entries
 
 
+def check_extra_shapes(reps: int):
+    """The attention kernels past the supernet's shapes, with the launches of
+    the ``shapes`` path: the 392 px finetune's stage 1 (the bf16 backward on
+    the split route), K1/K2 in both dtypes and K6-K9 in bf16, and K1/K2 at
+    a head dim of 24."""
+    label, b, n, h, d = FINETUNE_392[0]
+    entries = []
+    for dtype, layout in (("bfloat16", "packed"), ("float32", "packed"),
+                          ("bfloat16", "separate"), ("bfloat16", "seq_major")):
+        entries += check_attention(label, reps, b, "shapes", backward=True, layout=layout,
+                                   nhd=(n, h, d), dtype=dtype)
+    label, b, n, h, d = HEAD_DIM_24
+    return entries + check_attention(label, reps, b, "shapes", backward=True, nhd=(n, h, d))
+
+
 def check_kernels(stage: int, reps: int):
     """Every kernel at the shapes each main path gives it: the train step's
     batch (K1-K4; K5 at the same batch, the training step on the stats
@@ -531,8 +593,11 @@ def check_kernels(stage: int, reps: int):
             + check_row_stats(stage, reps, SEARCH_BATCH, "search"))
 
 
-def check_reference_net(ln_route: str):
-    """A small conv-stem supernet, float32: card (kernels) vs CPU (plain)."""
+def check_reference_net(ln_route: str, dtype=None):
+    """A small conv-stem supernet, float32 (or ``dtype``): card (kernels) vs
+    CPU (plain). In bfloat16 the loss, gradient norm and logits are held to
+    ``REF_NET_BF16_TOL``; AdamW's first step moves each parameter by about lr
+    whatever its gradient, so only the float32 run holds the parameters."""
     import numpy as np
     import torch
     from vit_search_torch.models import SupernetSchedules, build_arch_masks, create_model
@@ -540,6 +605,7 @@ def check_reference_net(ln_route: str):
                                         make_optimizer, make_train_step)
     from vit_search_torch.data.mixup import sample_token_mix_draws
 
+    dtype = dtype or torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     net = ((4, 64),
@@ -570,7 +636,7 @@ def check_reference_net(ln_route: str):
     for dev in ("cpu", "cuda"):
         model = create_model("flexible_vit_sr_patch14_224_patch_output_supernet",
                              network_def=net, img_size=img, drop_path_rate=0.1,
-                             gelu="tanh", device=dev, seed=0, ln_route=ln_route)
+                             gelu="tanh", device=dev, seed=0, ln_route=ln_route, dtype=dtype)
         masks = build_arch_masks(sched.unpack(counts, batch), net, batch, device=dev)
         x = torch.randn(batch, img, img, 3, generator=torch.Generator().manual_seed(1)).to(dev)
         cls, patch = model(x, masks, patch_output_type="seq",
@@ -587,12 +653,17 @@ def check_reference_net(ln_route: str):
                         float(metrics["grad_norm"]),
                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
     (c0, p0, l0, g0, sd0), (c1, p1, l1, g1, sd1) = results["cpu"], results["cuda"]
-    errs = {"cls_logits": compare("ref net cls logits", c1, c0, (1e-3, 1e-3)),
-            "patch_logits": compare("ref net patch logits", p1, p0, (1e-3, 1e-3))}
+    bf16 = dtype == torch.bfloat16
+    tol = REF_NET_BF16_TOL if bf16 else {"logits": (1e-3, 1e-3), "loss": 1e-4,
+                                         "grad_norm": 1e-4}
+    errs = {"cls_logits": compare("ref net cls logits", c1, c0, tol["logits"]),
+            "patch_logits": compare("ref net patch logits", p1, p0, tol["logits"])}
     for name, a, b_ in (("loss", l1, l0), ("grad_norm", g1, g0)):
-        if not math.isclose(a, b_, rel_tol=1e-4):
+        if not math.isclose(a, b_, rel_tol=tol[name]):
             raise AssertionError(f"ref net {name}: card {a} vs CPU {b_}")
         errs[name] = abs(a - b_)
+    if bf16:
+        return errs
     # AdamW's first step moves each parameter by about lr whatever the
     # gradient's size, so parameters are held to an absolute floor
     errs["params_after_step"] = max(compare(f"ref net {k}", sd1[k], sd0[k], (1e-4, 1e-4),
@@ -642,6 +713,44 @@ def ops_path():
     launches = {k.name: k.launches for k in kernels.KERNELS}
     check_launches(launches, PER_OPS_PASS, len(STAGES), "passes of the op-level API")
     return {"passes": len(STAGES), "batch": BATCH, "launches": launches}
+
+
+def shapes_path():
+    """The attention entry points forward and backward through autograd at
+    the extra shapes (``EXTRA_CALLS``), as a caller of the op would run the
+    392 px finetune or a net with head dim 24: outputs and gradients finite
+    and of the expected shapes, one launch of the layout's forward and
+    backward kernel per call (the bf16 backward at N = 785 launches the
+    split route's two kernels as one call of K2, K7 or K9). The plain
+    comparisons are ``check_extra_shapes``'s. Returns the launches of this
+    window."""
+    import torch
+
+    from vit_search_torch.ops import kernels
+
+    kernels.reset_launches()
+    want = per_pass()
+    for (label, b, n, h, d), dtype, layout in EXTRA_CALLS:
+        gen = torch.Generator(device="cuda").manual_seed(500 + n + d)
+        qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).to(getattr(torch, dtype))
+        do = torch.randn(b, n, h * d, device="cuda", generator=gen).to(qkv.dtype)
+        ins, g, ops, _, _ = attention_layout(layout, qkv, do, h)
+        leaves = tuple(t.clone().requires_grad_() for t in ins)
+        out = ops[0](*leaves, d ** -0.5, h)
+        grads = torch.autograd.grad(out, leaves, g)
+        what = f"{label} {dtype} {layout}"
+        if out.shape != g.shape or any(a.shape != x.shape for a, x in zip(grads, leaves)):
+            raise AssertionError(f"{what}: shapes {tuple(out.shape)}, "
+                                 f"{[tuple(a.shape) for a in grads]}")
+        if not all(torch.isfinite(t).all() for t in (out, *grads)):
+            raise AssertionError(f"{what}: non-finite")
+        for name in ATTENTION_KERNELS[layout]:
+            want[name] += 1
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_launches(launches, want, 1, "calls at the extra shapes")
+    return {"calls": [[list(shape), dtype, layout] for shape, dtype, layout in EXTRA_CALLS],
+            "launches": launches}
 
 
 def lab_path():
@@ -951,14 +1060,26 @@ def main(argv=None) -> int:
         entries += check_kernels(stage, REPS)
         log(f"stage {stage + 1} kernels agree with their plain versions at B = {BATCH} "
             f"and B = {SEARCH_BATCH}")
+    entries += check_extra_shapes(REPS)
+    log("the attention kernels agree with their plain versions at the 392 px finetune's "
+        "stage 1 and at head dim 24")
     for ln_route in ("fused", "stats"):
         report[f"reference_net_{ln_route}"] = errs = check_reference_net(ln_route)
         log(f"reference net, ln_route={ln_route}: card vs CPU {errs}")
+    report["reference_net_bf16"] = errs = check_reference_net("fused", torch.bfloat16)
+    print(f"reference net, bfloat16, ln_route=fused: card vs CPU {json.dumps(errs)} "
+          f"(tolerance {json.dumps(REF_NET_BF16_TOL)})", flush=True)
 
     report["ops"] = ops = ops_path()
     log(f"op-level API: {ops['passes']} passes, launches K6/K7 "
         f"{ops['launches']['attention_fwd']}/{ops['launches']['attention_bwd']}, K8/K9 "
         f"{ops['launches']['attention_qkv_t_fwd']}/{ops['launches']['attention_qkv_t_bwd']}")
+    report["shapes"] = shapes = shapes_path()
+    log(f"extra shapes: {len(EXTRA_CALLS)} calls, launches K1/K2 "
+        f"{shapes['launches']['attention_qkv_fwd']}/{shapes['launches']['attention_qkv_bwd']}, "
+        f"K6/K7 {shapes['launches']['attention_fwd']}/{shapes['launches']['attention_bwd']}, "
+        f"K8/K9 {shapes['launches']['attention_qkv_t_fwd']}/"
+        f"{shapes['launches']['attention_qkv_t_bwd']}")
 
     report["train"] = tr = train(STEPS, WARMUP)
     print(f"train: {tr['imgs_per_s']:.1f} imgs/s ({tr['step_ms']:.1f} ms/step, batch "
@@ -986,6 +1107,7 @@ def main(argv=None) -> int:
     # each kernel entry reports the launches of the path that gives it its shape
     runs = {"train": (tr, PER_STEP),
             "ops": (ops, PER_OPS_PASS),
+            "shapes": (shapes, PER_SHAPES_CALL),
             "lab": (lab, PER_LAB_SHAPE),
             "search": (searches["stats"], PER_FORWARD["stats"]),
             "search_fused": (searches["fused"], PER_FORWARD["fused"])}

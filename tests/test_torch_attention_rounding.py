@@ -10,18 +10,30 @@ before it is rounded. The kernel cannot run here, so this file emulates that
 rounding in plain PyTorch and holds the emulation to the plain versions (the
 float32 function) within ``chip_smoke.BF16_TOL``, the rule the card holds the
 kernels to, and to the JAX kernel in bfloat16 (interpret mode on the CPU).
-Inputs are numpy arrays from a seed, rounded to bfloat16.
+
+The lab's split backward (K12a: dq; K12b: dk and dv) runs the tensor-core
+split bodies in bfloat16, which round as K2's body: each recomputes p, dp,
+delta and ds in float32 and takes p and ds as bfloat16 operands only. Its
+emulation is held to the split's plain versions and to the JAX lab's
+``call_split`` in bfloat16 (``pl.pallas_call`` patched to interpret mode, as
+in test_torch_attn_lab.py). Inputs are numpy arrays from a seed, rounded to
+bfloat16.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from chip_smoke import BF16_TOL
 from vit_search_tpu.ops.pallas.attention import fused_attention_qkv as jax_attention_qkv
+from vit_search_tpu.tools import attn_lab as jax_lab
 from vit_search_torch.ops import attention as A
+from vit_search_torch.tools import attn_lab as lab
 
 # (N, heads, head_dim): the three stage shapes, then a ragged N with D = 8
 SHAPES = [(257, 6, 32), (65, 12, 48), (17, 12, 64), (33, 3, 8)]
@@ -68,6 +80,22 @@ def emulate_bwd(qkv: torch.Tensor, do: torch.Tensor, scale: float, h: int) -> to
     return torch.stack((dq, dk, dv), dim=2).reshape(qkv.shape).to(torch.bfloat16)
 
 
+def emulate_split(qkv: torch.Tensor, do: torch.Tensor, scale: float, h: int):
+    """K12a's and K12b's rounding: dq from bf16 ds, dk from bf16 ds, dv from
+    bf16 p, each summed in f32 from p, dp, delta and ds recomputed in f32.
+    Returns ``(dq, dkv)``: ``(B, N, W)`` and ``[dk | dv]``, ``(B, N, 2W)``."""
+    q, k, v = A._split(qkv, h)
+    g = do.float().view(q.shape)
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", g, v)
+    dsb = _bf16(p * (dp - (dp * p).sum(-1, keepdim=True)))
+    dq = torch.einsum("bhnm,bmhd->bnhd", dsb, k) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", dsb, q) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", _bf16(p), g)
+    return (dq.reshape(do.shape).to(torch.bfloat16),
+            torch.cat([dk.reshape(do.shape), dv.reshape(do.shape)], dim=2).to(torch.bfloat16))
+
+
 def _within_bf16_tol(got: torch.Tensor, want: torch.Tensor, name: str) -> None:
     """``|got - want| <= atol * max|want| + rtol * |want|``, chip_smoke's rule."""
     got, want = got.float(), want.float()
@@ -112,3 +140,32 @@ def test_rounding_within_tolerance_of_jax_in_bf16(n, h, d):
                      "forward")
     _within_bf16_tol(emulate_bwd(x, g, scale, h),
                      torch.from_numpy(np.asarray(dqkv_ref, np.float32)), "backward")
+
+
+@pytest.mark.parametrize("n,h,d", SHAPES, ids=SHAPE_IDS)
+def test_split_rounding_within_tolerance_of_plain(n, h, d):
+    """K12a's and K12b's operand rounding stays within BF16_TOL of the split's
+    float32 plain versions, and is K2's: the pair's result is emulate_bwd's."""
+    qkv, do = _inputs(n, h, d, seed=n * h + d + 2)
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    scale = d ** -0.5
+    dq, dkv = emulate_split(x, g, scale, h)
+    _within_bf16_tol(dq, lab.split_dq_plain(x, g, scale, h), "K12a")
+    _within_bf16_tol(dkv, lab.split_dkv_plain(x, g, scale, h), "K12b")
+    assert torch.equal(torch.cat([dq, dkv], dim=2), emulate_bwd(x, g, scale, h))
+
+
+@pytest.mark.parametrize("n,h,d", JAX_SHAPES, ids=[f"n{n}h{h}d{d}" for n, h, d in JAX_SHAPES])
+def test_split_rounding_within_tolerance_of_jax_lab_in_bf16(monkeypatch, n, h, d):
+    """The JAX lab's split (_dq_kernel, _dkv_kernel) on bfloat16 inputs in
+    interpret mode against the emulated tensor-core rounding of K12a/K12b."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    qkv, do = _inputs(n, h, d, seed=5 * n + d)
+    scale = d ** -0.5
+    want = np.asarray(jax_lab.call_split(jnp.asarray(qkv, jnp.bfloat16),
+                                         jnp.asarray(do, jnp.bfloat16), scale, h, 1), np.float32)
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    dq, dkv = emulate_split(x, g, scale, h)
+    w = h * d
+    _within_bf16_tol(dq, torch.from_numpy(want[..., :w]), "K12a")
+    _within_bf16_tol(dkv, torch.from_numpy(want[..., w:]), "K12b")

@@ -224,19 +224,135 @@ def test_attention_wrappers_raise_on_a_misaligned_operand(cuda):
     assert (A.K1.launches, A.K2.launches, A.K6.launches, A.K7.launches) == before
 
 
-@pytest.mark.gpu
-def test_attention_shared_memory_limit_is_per_dtype(cuda):
-    """At D = 32 the bf16 backward fits up to N = 624 and the f32 one further:
-    the wrapper asks the library for the shared memory of the dtype's body
-    and refuses only what does not fit."""
-    def call(n, dtype):
-        qkv = torch.zeros(1, n, 3 * 32, device=cuda, dtype=dtype)
-        return A.attention_qkv_bwd_cuda(qkv, qkv[..., :32].contiguous(), 0.2, 1)
+# the largest N each dtype's kernels take at a head dim (shared memory; PERF.md
+# section 7), and where the bf16 backward leaves its one-launch body
+MAX_N = {(torch.bfloat16, 32): 1232, (torch.bfloat16, 48): 848, (torch.bfloat16, 64): 656,
+         (torch.float32, 32): 842, (torch.float32, 48): 575, (torch.float32, 64): 436}
+ONE_LAUNCH_MAX_N = {32: 624, 48: 432, 64: 320}
 
-    assert torch.isfinite(call(624, torch.bfloat16).float()).all()
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_shared_memory_limit_is_per_dtype(cuda, d, dtype):
+    """Each dtype's backward takes N up to its own limit and the wrapper
+    refuses, by name, one token more; the bf16 backward leaves its
+    one-launch body for the split route just past ``ONE_LAUNCH_MAX_N``."""
+    def call(n):
+        qkv = torch.zeros(1, n, 3 * d, device=cuda, dtype=dtype)
+        return A.attention_qkv_bwd_cuda(qkv, qkv[..., :d].contiguous(), 0.2, 1)
+
+    top = MAX_N[(dtype, d)]
+    assert torch.isfinite(call(top).float()).all()
     with pytest.raises(ValueError, match="shared memory"):
-        call(625, torch.bfloat16)
-    assert torch.isfinite(call(625, torch.float32)).all()
+        call(top + 1)
+    if dtype == torch.bfloat16:
+        one = ONE_LAUNCH_MAX_N[d]
+        assert not A.backward_is_split(one, d) and A.backward_is_split(one + 1, d)
+
+
+# (N, heads, head_dim) of the 392 px finetune's stages (its network_def,
+# scripts/vit-sr-nas/finetune/medium_img-size@392.sh), at a few heads
+FINETUNE_392 = [(785, 2, 32), (197, 3, 48), (50, 3, 64)]
+FINETUNE_IDS = ["n785d32", "n197d48", "n50d64"]
+
+
+def _all_layouts(qkv, do, scale, h, d):
+    """K1/K2, K6/K7 and K8/K9 on one projection: ``{layout: (out, dqkv)}``,
+    each in the packed layout."""
+    q, k, v = (t.contiguous() for t in qkv.split(h * d, dim=2))
+    qkv_t, do_t = qkv.transpose(0, 1).contiguous(), do.transpose(0, 1).contiguous()
+    return {"packed": (A.attention_qkv_fwd_cuda(qkv, scale, h),
+                       A.attention_qkv_bwd_cuda(qkv, do, scale, h)),
+            "separate": (A.attention_fwd_cuda(q, k, v, scale, h),
+                         torch.cat(A.attention_bwd_cuda(q, k, v, do, scale, h), dim=2)),
+            "seq_major": (A.attention_qkv_t_fwd_cuda(qkv_t, scale, h).transpose(0, 1),
+                          A.attention_qkv_t_bwd_cuda(qkv_t, do_t, scale, h).transpose(0, 1))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,d", FINETUNE_392, ids=FINETUNE_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernels_take_the_392px_finetune(cuda, n, h, d, dtype):
+    """K1/K2, K6/K7 and K8/K9 against the plain versions at the 392 px
+    finetune's stage shapes; the bf16 backward at N = 785 takes the split
+    route."""
+    qkv, do = _projection(cuda, n, h, d, dtype, b=2)
+    scale = d ** -0.5
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    want = (A.attention_qkv_plain(qkv, scale, h), A.attention_qkv_bwd_plain(qkv, do, scale, h))
+    for layout, (out, dqkv) in _all_layouts(qkv, do, scale, h, d).items():
+        _close(out, want[0], tol)
+        _close(dqkv, want[1], tol)
+    assert A.backward_is_split(n, d) == (n == 785)
+
+
+@pytest.mark.gpu
+def test_layouts_agree_bit_for_bit_past_the_one_launch_limit(cuda):
+    """On the split route (N = 785, D = 32) the three layouts still give one
+    another's bits, run after run, and dk and dv are the lab's K12b's."""
+    n, h, d = 785, 3, 32
+    qkv, do = _projection(cuda, n, h, d, torch.bfloat16, b=3)
+    scale = d ** -0.5
+    runs = [_all_layouts(qkv, do, scale, h, d) for _ in range(3)]
+    first_out, first_grad = runs[0]["packed"]
+    for run in runs:
+        for out, dqkv in run.values():
+            assert torch.equal(out, first_out) and torch.equal(dqkv, first_grad)
+    w = h * d
+    assert torch.equal(L.split_dkv_cuda(qkv, do, scale, h), first_grad[..., w:])
+    assert torch.equal(L.split_dq_cuda(qkv, do, scale, h), first_grad[..., :w])
+
+
+# head dims off the old (8, 16, 32, 48, 64, 128) list, at ragged lengths
+HEAD_DIMS = [(17, 3, 24), (65, 2, 40), (33, 2, 56), (40, 2, 80), (257, 2, 96), (30, 1, 112)]
+HEAD_DIM_IDS = [f"n{n}h{h}d{d}" for n, h, d in HEAD_DIMS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,d", HEAD_DIMS, ids=HEAD_DIM_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernels_take_every_head_dim(cuda, n, h, d, dtype):
+    """Every multiple of 8 up to 128: the kernels of each layout against the
+    plain versions, and (bf16) the layouts bit for bit."""
+    qkv, do = _projection(cuda, n, h, d, dtype, b=3)
+    scale = d ** -0.5
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    want = (A.attention_qkv_plain(qkv, scale, h), A.attention_qkv_bwd_plain(qkv, do, scale, h))
+    results = _all_layouts(qkv, do, scale, h, d)
+    for out, dqkv in results.values():
+        _close(out, want[0], tol)
+        _close(dqkv, want[1], tol)
+        if dtype == torch.bfloat16:
+            assert torch.equal(out, results["packed"][0])
+            assert torch.equal(dqkv, results["packed"][1])
+
+
+@pytest.mark.gpu
+def test_model_sends_head_dims_the_kernels_do_not_take_to_plain(cuda):
+    """An attention layer with head dim 24 launches K1/K2; one with head dim
+    12 runs the plain version on the card and launches nothing."""
+    from vit_search_torch.models.layers import Attention
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for head_dim, launched in ((24, 1), (12, 0)):
+        layer = Attention(48, 48 // head_dim, head_dim, 48, torch.bfloat16, gen).to(cuda)
+        x = torch.randn(2, 17, 48, device=cuda, requires_grad=True)
+        before = (A.K1.launches, A.K2.launches)
+        layer(x).sum().backward()
+        torch.cuda.synchronize()
+        assert (A.K1.launches - before[0], A.K2.launches - before[1]) == (launched, launched)
+        assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.gpu
+def test_reference_net_in_bf16_matches_the_cpu(cuda):
+    """The small supernet in bf16 on the card (tensor-core attention) against
+    the same net on the CPU (plain versions), at chip_smoke's tolerance."""
+    import chip_smoke
+
+    errs = chip_smoke.check_reference_net("fused", torch.bfloat16)
+    assert set(errs) >= {"loss", "grad_norm", "cls_logits", "patch_logits"}
 
 
 @pytest.mark.gpu
@@ -297,7 +413,12 @@ def test_gradient_sums_are_deterministic(cuda):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     qkv = torch.zeros(2, 17, 3 * 2 * 24, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        A.attention_qkv_fwd_cuda(qkv, 0.2, 2)                  # d = 24
+        A.attention_qkv_fwd_cuda(qkv, 0.2, 4)                  # d = 12
+    with pytest.raises(ValueError, match="head_dim"):
+        A.attention_qkv_bwd_cuda(torch.zeros(2, 17, 3 * 136, device=cuda,
+                                             dtype=torch.bfloat16),
+                                 torch.zeros(2, 17, 136, device=cuda, dtype=torch.bfloat16),
+                                 0.1, 1)                       # d = 136
     with pytest.raises(TypeError):
         A.attention_qkv_fwd_cuda(qkv.half(), 0.2, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -418,6 +539,39 @@ def test_lab_kernels_match_plain(cuda, kernel, n, c, h, d, dtype):
     torch.cuda.synchronize()
     assert record.launches == before + 1
     _close(got, plain(*args, d ** -0.5, h), 2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+# the split's kernels alone: ragged lengths, and N = 785 (bf16 only: the
+# CUDA-core f32 bodies hold all four operands and stop near N = 420 at D = 32)
+SPLIT_SHAPES = [(17, 2, 64), (100, 3, 48), (785, 2, 32)]
+SPLIT_IDS = [f"n{n}h{h}d{d}" for n, h, d in SPLIT_SHAPES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K12a", "K12b"])
+@pytest.mark.parametrize("n,h,d", SPLIT_SHAPES, ids=SPLIT_IDS)
+def test_lab_split_kernels_take_ragged_lengths(cuda, kernel, n, h, d):
+    cuda_fn, plain, record, _ = LAB_KERNELS[kernel]
+    qkv, do = _projection(cuda, n, h, d, torch.bfloat16, b=2)
+    before = record.launches
+    got = cuda_fn(qkv, do, d ** -0.5, h)
+    torch.cuda.synchronize()
+    assert record.launches == before + 1
+    _close(got, plain(qkv, do, d ** -0.5, h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES + [(258, 0, 6, 32)], ids=IDS + ["n258h6d32"])
+def test_lab_split_dkv_gives_k2_bits(cuda, n, c, h, d):
+    """K12b walks the query tiles in K2's order with K2's arithmetic, so its
+    dk and dv are the one-launch K2's bits; K12a's dq sums the key blocks in
+    another order and is held to the tolerance only."""
+    qkv, do = _projection(cuda, n, h, d, torch.bfloat16)
+    scale, w = d ** -0.5, h * d
+    want = A.attention_qkv_bwd_cuda(qkv, do, scale, h)
+    assert not A.backward_is_split(n, d)
+    assert torch.equal(L.split_dkv_cuda(qkv, do, scale, h), want[..., w:])
+    _close(L.split_dq_cuda(qkv, do, scale, h), want[..., :w])
 
 
 @pytest.mark.gpu

@@ -14,26 +14,31 @@
 // (B, N, 2W) with column blocks [dk | dv], as _dkv_kernel writes them
 // (attn_lab.py:164-165).
 //
-// Math, per (example, head), all in f32 from the inputs:
+// Math, per (example, head):
 //   K10       s = q k^T * scale; p = softmax_rows(s); o = p v with p NOT
 //             rounded: the lab lifts v to p's f32 (attn_lab.py:65), where K1
 //             rounds p to v's dtype (attention.cu), so in bf16 K10 is not K1's
-//             function. o is stored in the dtype of qkv.
+//             function. o is stored in the dtype of qkv. All in f32.
 //   K11, K12  K2's function: dv = p^T do; dp = do v^T; delta = rowsum(dp * p);
 //             ds = p * (dp - delta); dq = ds k * scale; dk = ds^T q * scale.
+//             K11 and the f32 K12 in f32 throughout; the bf16 K12 rounds as
+//             K2's tensor-core body (p and ds bf16 only as MMA operands).
 //
 // What bounds them on this card: as for K1/K2, the function is bound by bytes
 // at the tensor cores' rate (about 4*N*D flops per (example, head) and row in
-// the forward, 10*N*D in the backward, against 8*D and 14*D bytes), but this
-// first version computes on the CUDA cores in f32, so the dot products are its
-// limit. wgmma, TMA and tuning come later.
+// the forward, 10*N*D in the backward, against 8*D and 14*D bytes). K10, K11
+// and the f32 K12 compute on the CUDA cores in f32, so their dot products are
+// their limit. A bf16 K12a or K12b runs the tensor-core split bodies of
+// attention_tc.cuh (their design is described there), the bodies that also
+// carry K2 past its one-launch body's N limit: the same instantiation, with
+// the lab's output strides.
 //
-// Design. The TPU keeps whole (N, N) f32 score tiles in VMEM; at N = 258 one
-// is 266 KB, more than the 227 KB of shared memory a block can have. A block
-// owns one (example, head) and stages what it reads for every row as f32,
-// rows padded to D + 1 floats so that lanes walking rows hit distinct banks.
-// Arrays read with lanes over their rows but indexed along the sequence have
-// a row stride of n | 1, odd for the same reason.
+// Design of the CUDA-core bodies. The TPU keeps whole (N, N) f32 score tiles
+// in VMEM; at N = 258 one is 266 KB, more than the 227 KB of shared memory a
+// block can have. A block owns one (example, head) and stages what it reads
+// for every row as f32, rows padded to D + 1 floats so that lanes walking rows
+// hit distinct banks. Arrays read with lanes over their rows but indexed along
+// the sequence have a row stride of n | 1, odd for the same reason.
 //   K10   The TPU puts the sequence on lanes so that (d, n) results fill its
 //         128-wide tiles. Here the block walks the queries in tiles of 32:
 //         (1) warp per query row: scores over all keys, exact two-pass
@@ -63,68 +68,38 @@
 //         and dV^T (64.8 KB), P and dS (64.8 KB), and the tile's q, do and
 //         dq (12.4 KB): 208.4 KB of 227 KB, one block per SM. It fits, so it
 //         is not split.
-//   K12a  Warp per query row as K2's dq pass; dq goes to its own (B, N, W)
-//         tensor, and no row statistics are written.
-//   K12b  Shares nothing with K12a: the lab's _dkv_kernel recomputes s and p
-//         itself (attn_lab.py:158-162), where K2's dk/dv pass reads each query
-//         row's (max, sum, delta) from scratch its dq pass wrote. The block
-//         stages q, k, v and do, then
+//   K12a  (f32) Warp per query row as K2's f32 dq pass; dq goes to its own
+//         (B, N, W) tensor, and no row statistics are written.
+//   K12b  (f32) Shares nothing with K12a: the lab's _dkv_kernel recomputes s
+//         and p itself (attn_lab.py:158-162). The block stages q, k, v and do,
+//         then
 //         (1) warp per query row over all keys: each row's max, sum and delta
 //             into shared memory (K2's dq pass without the dq product);
 //         (2) warp per key row over all queries, as K2's dk/dv pass: p and ds
 //             from those statistics, dk and dv summed over every query.
 //         At N = 258, D = 32: q, k, v, do 136.2 KB, statistics 3.1 KB, the
 //         warps' rows 16.5 KB.
-// N is any length (every loop masks its ragged end); D is a template constant
-// (8, 16, 32, 48, 64, 128) so the per-row vectors live in registers. The JAX
-// lab's group size g (_pick_group) budgets VMEM per grid cell and has no
-// counterpart here: the block per (example, head) is the same at every shape.
+// N is any length up to what shared memory holds (every loop masks its ragged
+// end); D is a template constant (8, 16, 32, 48, 64, 128) so the per-row
+// vectors live in registers. The JAX lab's group size g (_pick_group) budgets
+// VMEM per grid cell and has no counterpart here: the block per (example,
+// head) is the same at every shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_tc.cuh"
 
-#include <math.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;             // query rows per tile in K10 and K11: one per lane
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may opt into
 
 // kernel codes of vst_lab_launch and vst_lab_smem_bytes
 enum Which { kFwdT = 0, kBwdT = 1, kDq = 2, kDkv = 3 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Stage columns [0, D) of rows 0..n-1 from `rows` (token stride `row_stride`)
-// into f32 shared memory with row stride `stride`.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ rows, long long row_stride, int n,
-                                      float* __restrict__ dst, int stride) {
-  for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
-    const int j = idx / D, c = idx - j * D;
-    dst[j * stride + c] = to_f(rows[(long long)j * row_stride + c]);
-  }
 }
 
 // Store f32 shared rows 0..rows-1 (row stride `stride`) to columns [0, D) of
@@ -185,8 +160,8 @@ lab_fwd_t_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int head
   const long long row3 = 3LL * w;
   const T* base = qkv + (long long)b * n * row3 + h * D;
   T* obase = out + (long long)b * n * w + h * D;
-  stage<T, D>(base + w, row3, n, Ks, KS);
-  stage<T, D>(base + 2 * w, row3, n, Vs, D);
+  stage(base + w, row3, n, D, Ks, KS);
+  stage(base + 2 * w, row3, n, D, Vs, D);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i0 = 0; i0 < n; i0 += kTile) {
@@ -249,16 +224,16 @@ lab_bwd_t_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __res
   const T* base = qkv + (long long)b * n * row3 + h * D;
   const T* gbase = dout + (long long)b * n * w + h * D;
   T* dbase = dqkv + (long long)b * n * row3 + h * D;
-  stage<T, D>(base + w, row3, n, Ks, KS);
-  stage<T, D>(base + 2 * w, row3, n, Vs, KS);
+  stage(base + w, row3, n, D, Ks, KS);
+  stage(base + 2 * w, row3, n, D, Vs, KS);
   for (int idx = threadIdx.x; idx < D * ns; idx += kThreads) dKt[idx] = dVt[idx] = 0.f;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i0 = 0; i0 < n; i0 += kTile) {
     const int rows = min(kTile, n - i0);
     __syncthreads();  // the last tile's P, dS, Qs and Gs read and its dQs stored
-    stage<T, D>(base + (long long)i0 * row3, row3, rows, Qs, KS);
-    stage<T, D>(gbase + (long long)i0 * w, w, rows, Gs, KS);
+    stage(base + (long long)i0 * row3, row3, rows, D, Qs, KS);
+    stage(gbase + (long long)i0 * w, w, rows, D, Gs, KS);
     __syncthreads();
     for (int r = warp; r < rows; r += kWarps) {
       float qv[D], g[D];
@@ -365,8 +340,8 @@ lab_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restri
   const T* base = qkv + (long long)b * n * row3 + h * D;
   const T* gbase = dout + (long long)b * n * w + h * D;
   T* dbase = dq + (long long)b * n * w + h * D;
-  stage<T, D>(base + w, row3, n, Ks, KS);
-  stage<T, D>(base + 2 * w, row3, n, Vs, KS);
+  stage(base + w, row3, n, D, Ks, KS);
+  stage(base + 2 * w, row3, n, D, Vs, KS);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -455,10 +430,10 @@ lab_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
   const long long row3 = 3LL * w;
   const T* base = qkv + (long long)b * n * row3 + h * D;
   T* dbase = dkv + (long long)b * n * 2 * w + h * D;
-  stage<T, D>(base, row3, n, Qs, KS);
-  stage<T, D>(base + w, row3, n, Ks, KS);
-  stage<T, D>(base + 2 * w, row3, n, Vs, KS);
-  stage<T, D>(dout + (long long)b * n * w + h * D, w, n, Gs, KS);
+  stage(base, row3, n, D, Qs, KS);
+  stage(base + w, row3, n, D, Ks, KS);
+  stage(base + 2 * w, row3, n, D, Vs, KS);
+  stage(dout + (long long)b * n * w + h * D, w, n, D, Gs, KS);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -562,33 +537,55 @@ lab_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
   }
 }
 
-size_t smem_bytes(int which, int n, int d) {
+// Dynamic shared memory of kernel `which` at (n, d) and dtype (0 = float32,
+// 1 = bfloat16: the tensor-core split bodies for K12a and K12b).
+size_t smem_bytes(int which, int n, int d, int dtype) {
   const size_t ks = (size_t)d + 1, odd = (size_t)(n | 1), rows = (size_t)n;
+  const bool tc_split = dtype == 1;
   switch (which) {
     case kFwdT: return sizeof(float) * (rows * (ks + d) + kTile * odd + kTile * ks);
     case kBwdT: return sizeof(float) * (2 * rows * ks + 2 * (size_t)d * odd + 2 * kTile * odd +
                                         3 * kTile * ks);
-    case kDq: return sizeof(float) * (2 * rows * ks + 2 * kWarps * rows);
-    case kDkv: return sizeof(float) * (4 * rows * ks + 3 * rows + 2 * kWarps * rows);
+    case kDq:
+      if (tc_split) return tc::split_dq_bytes(n, d);
+      return sizeof(float) * (2 * rows * ks + 2 * kWarps * rows);
+    case kDkv:
+      if (tc_split) return tc::split_dkv_bytes(n, d);
+      return sizeof(float) * (4 * rows * ks + 3 * rows + 2 * kWarps * rows);
     default: return 0;
   }
 }
 
-template <typename K>
-int prepare(K kernel, size_t smem) {
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+// The bf16 K12a and K12b: the split bodies of attention_tc.cuh on the packed
+// qkv, storing dq into (batch, n, W) and [dk | dv] into (batch, n, 2W).
+template <int DP>
+int launch_split(int which, const tc::bf16* x, const tc::bf16* g, tc::bf16* y, int batch, int n,
+                 int heads, int d, float scale, size_t smem, cudaStream_t stream) {
+  const int w = heads * d, blocks = batch * heads;
+  const int threads = 32 * tc::warps_for((n + 15) / 16);
+  int rc;
+  if (which == kDq) {
+    if ((rc = prepare(tc::attn_split_dq_kernel<DP, kPacked>, smem))) return rc;
+    tc::attn_split_dq_kernel<DP, kPacked><<<blocks, threads, smem, stream>>>(
+        x, x + w, x + 2 * w, g, y, Strides{w, (long long)n * w}, batch, n, heads, d, scale);
+  } else {
+    if ((rc = prepare(tc::attn_split_dkv_kernel<DP, kPacked>, smem))) return rc;
+    tc::attn_split_dkv_kernel<DP, kPacked><<<blocks, threads, smem, stream>>>(
+        x, x + w, x + 2 * w, g, y, y + w, Strides{2LL * w, 2LL * n * w}, batch, n, heads, d,
+        scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(int which, const void* qkv, const void* dout, void* out, int batch, int n,
            int heads, float scale, cudaStream_t stream) {
+  constexpr bool is_bf16 = std::is_same<T, tc::bf16>::value;
   const T* x = static_cast<const T*>(qkv);
   const T* g = static_cast<const T*>(dout);
   T* y = static_cast<T*>(out);
   const int blocks = batch * heads;
-  const size_t smem = smem_bytes(which, n, D);
+  const size_t smem = smem_bytes(which, n, D, is_bf16 ? 1 : 0);
   int rc;
   if (which == kFwdT) {
     if ((rc = prepare(lab_fwd_t_kernel<T, D>, smem))) return rc;
@@ -596,12 +593,17 @@ int launch(int which, const void* qkv, const void* dout, void* out, int batch, i
   } else if (which == kBwdT) {
     if ((rc = prepare(lab_bwd_t_kernel<T, D>, smem))) return rc;
     lab_bwd_t_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
-  } else if (which == kDq) {
-    if ((rc = prepare(lab_dq_kernel<T, D>, smem))) return rc;
-    lab_dq_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
-  } else if (which == kDkv) {
-    if ((rc = prepare(lab_dkv_kernel<T, D>, smem))) return rc;
-    lab_dkv_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
+  } else if (which == kDq || which == kDkv) {
+    if constexpr (is_bf16) {
+      return launch_split<(D + 15) / 16 * 16>(which, x, g, y, batch, n, heads, D, scale, smem,
+                                              stream);
+    } else if (which == kDq) {
+      if ((rc = prepare(lab_dq_kernel<T, D>, smem))) return rc;
+      lab_dq_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
+    } else {
+      if ((rc = prepare(lab_dkv_kernel<T, D>, smem))) return rc;
+      lab_dkv_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -639,9 +641,11 @@ int vst_lab_launch(int which, const void* qkv, const void* dout, void* out, int 
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory the kernel `which` needs at (n, d), so the caller can
-// refuse a shape before launching.
-long long vst_lab_smem_bytes(int which, int n, int d) { return (long long)smem_bytes(which, n, d); }
+// Dynamic shared memory the kernel `which` needs at (n, d) in `dtype`, so the
+// caller can refuse a shape before launching.
+long long vst_lab_smem_bytes(int which, int n, int d, int dtype) {
+  return (long long)smem_bytes(which, n, d, dtype);
+}
 
 }  // extern "C"
 

@@ -20,8 +20,11 @@ scores and softmax in float32, probabilities cast to the value dtype before
 ``p``. On the card a bfloat16 call takes the tensor-core body, whose
 backward rounds ``p`` and ``ds`` to bfloat16 as operands of its products
 (``delta`` and ``ds`` are still formed in float32), and a float32 call the
-CUDA-core body, all in float32. The plain versions are the float32
-function. The JAX module's VMEM budgeting (``_pick_group``,
+CUDA-core body, all in float32. A bfloat16 backward whose one-launch body
+does not fit in shared memory (N past 624 at d = 32) takes the split
+backward of ``csrc/attention_tc.cuh`` instead, two launches counted as one
+call of its kernel; the choice is fixed by ``(N, d)``. The plain versions
+are the float32 function. The JAX module's VMEM budgeting (``_pick_group``,
 ``_pick_group_t``, ``_params_t`` and ``VST_ATTN_T_VMEM_MB``) sizes TPU
 blocks and has no counterpart: on the card every layout runs one block per
 (example, head).
@@ -50,14 +53,22 @@ K7 = kernels.register(Kernel("attention_bwd", SOURCE, f"{PALLAS}:62"))
 K8 = kernels.register(Kernel("attention_qkv_t_fwd", SOURCE, f"{PALLAS}:306"))
 K9 = kernels.register(Kernel("attention_qkv_t_bwd", SOURCE, f"{PALLAS}:331"))
 
-KERNEL_HEAD_DIMS = (8, 16, 32, 48, 64, 128)
+# the head dims the kernels take: rows move in 16-byte copies of 8 bf16, and
+# a head of at most 128 columns fits the kernels' tiles
+KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
 MAX_SMEM_BYTES = 232448
 
 
 def supported(n: int, d: int, attn_dropout_rate: float) -> bool:
-    """The fused op covers dropout-free attention with N >= 8 and d >= 8
-    (the JAX package's dispatch rule, attention.py:461-463)."""
-    return attn_dropout_rate == 0.0 and n >= 8 and d >= 8
+    """The fused op covers dropout-free attention with N >= 8 and a head dim
+    in :data:`KERNEL_HEAD_DIMS`.
+
+    Narrower than the JAX package's rule (any d >= 8, attention.py:461-463):
+    the card's kernels copy rows in 16-byte pieces and hold at most 128
+    columns, so a head dim off that grid goes to :func:`attention_qkv_plain`,
+    the same function, as the JAX model sends shapes outside its kernel's
+    rule to XLA."""
+    return attn_dropout_rate == 0.0 and n >= 8 and d in KERNEL_HEAD_DIMS
 
 
 # --- plain versions -------------------------------------------------------
@@ -158,6 +169,8 @@ def _lib():
             fn.restype = i
         lib.vst_attn_smem_bytes.argtypes = [i, i, i]
         lib.vst_attn_smem_bytes.restype = ctypes.c_longlong
+        lib.vst_attn_bwd_split.argtypes = [i, i]
+        lib.vst_attn_bwd_split.restype = i
         lib._vst_typed = True
     return lib
 
@@ -172,7 +185,8 @@ def _check(x: torch.Tensor, name: str, parts: int, num_heads: int, seq_major: bo
         b, n = n, b
     d = _head_dim(width, parts, num_heads)
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+        raise ValueError(f"attention kernel takes a head_dim that is a multiple of 8 "
+                         f"from 8 to 128, got {d}")
     lib = _lib()
     smem = lib.vst_attn_smem_bytes(n, d, kernels.DTYPE_CODES[x.dtype])
     if smem > MAX_SMEM_BYTES:
@@ -197,10 +211,16 @@ def _tail(x: torch.Tensor, batch: int, n: int, num_heads: int, d: int, scale: fl
     return [batch, n, num_heads, d, scale, kernels.DTYPE_CODES[x.dtype], kernels.stream_ptr(x)]
 
 
+def backward_is_split(n: int, d: int) -> bool:
+    """Whether a bfloat16 backward at ``(N, d)`` takes the split route (a dq
+    launch, then a dk/dv launch) rather than the one-launch body."""
+    return bool(_lib().vst_attn_bwd_split(n, d))
+
+
 def _rowstats(x: torch.Tensor, batch: int, n: int, num_heads: int) -> torch.Tensor:
     """A backward's scratch: each query row's (max, sum, delta), float32, for
-    the float32 body's two launches. The bfloat16 body keeps them on chip
-    and never reads its (empty) scratch."""
+    the float32 body's two launches. The bfloat16 bodies keep them on chip
+    and never read their (empty) scratch."""
     rows = batch * num_heads * n if x.dtype == torch.float32 else 0
     return torch.empty((rows, 4), dtype=torch.float32, device=x.device)
 
@@ -217,7 +237,8 @@ def attention_qkv_fwd_cuda(qkv: torch.Tensor, scale: float, num_heads: int) -> t
 
 def attention_qkv_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, scale: float,
                            num_heads: int) -> torch.Tensor:
-    """Launch K2 (bf16: one launch; f32: its dq pass, then its dk/dv pass)."""
+    """Launch K2 (bf16: one launch, or the split route's two; f32: its dq
+    pass, then its dk/dv pass)."""
     b, n, d, lib = _check(qkv, "qkv", 3, num_heads)
     _check_like(do, "do", qkv, (b, n, num_heads * d))
     dqkv = torch.empty_like(qkv)
@@ -243,8 +264,8 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
 
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                        scale: float, num_heads: int) -> Tuple[torch.Tensor, ...]:
-    """Launch K7 (bf16: one launch; f32: its dq pass, then its dk/dv pass):
-    ``(dq, dk, dv)``."""
+    """Launch K7 (bf16: one launch, or the split route's two; f32: its dq
+    pass, then its dk/dv pass): ``(dq, dk, dv)``."""
     b, n, d, lib = _check(q, "q", 1, num_heads)
     for t, name in ((k, "k"), (v, "v"), (do, "do")):
         _check_like(t, name, q, q.shape)
@@ -268,8 +289,8 @@ def attention_qkv_t_fwd_cuda(qkv_t: torch.Tensor, scale: float, num_heads: int) 
 
 def attention_qkv_t_bwd_cuda(qkv_t: torch.Tensor, do_t: torch.Tensor, scale: float,
                              num_heads: int) -> torch.Tensor:
-    """Launch K9 (bf16: one launch; f32: its dq pass, then its dk/dv pass):
-    the ``(N, B, 3W)`` cotangent."""
+    """Launch K9 (bf16: one launch, or the split route's two; f32: its dq
+    pass, then its dk/dv pass): the ``(N, B, 3W)`` cotangent."""
     b, n, d, lib = _check(qkv_t, "qkv_t", 3, num_heads, seq_major=True)
     _check_like(do_t, "do_t", qkv_t, (n, b, num_heads * d))
     dqkv_t = torch.empty_like(qkv_t)

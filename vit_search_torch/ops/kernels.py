@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Builds start
 together (one ``nvcc`` per source), happen at first use, and land in
 ``vit_search_torch/csrc/build/`` (listed in ``.gitignore``) under a name that
-hashes the source and the flags, so an edited source is rebuilt.
+hashes the source, the ``csrc`` headers it includes and the flags, so an
+edited source or header is rebuilt.
 
 Nothing here runs at import time: the CPU tests import every module, and the
 CPU has neither ``nvcc`` nor a card.
@@ -19,6 +20,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -71,10 +73,26 @@ def _nvcc() -> str:
                        "(nvcc for sm_90a) on PATH or under CUDA_HOME")
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Optional[List[Path]] = None) -> List[Path]:
+    """``path`` and every ``csrc`` header it includes, directly or not."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            _sources(CSRC / name.decode(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libvst_{name}_{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers it includes and the flags, so an edit to any of them rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC / f"{name}.cu"):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libvst_{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, str]:

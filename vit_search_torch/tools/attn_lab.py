@@ -15,9 +15,12 @@ Four kernels in ``csrc/attn_lab.cu``, each beside its plain version:
   ``(B, N, 3W)`` cotangent, in one launch.
 - K12a (``_dq_kernel``, attn_lab.py:123) and K12b (``_dkv_kernel``,
   attn_lab.py:146): K2's function split into a dq kernel and a dk/dv kernel
-  that share nothing, each recomputing s and p (K2's own passes share each
-  query row's statistics). :func:`call_split` returns ``cat([dq, dkv])``,
-  K2's packed cotangent, as the lab's ``call_split`` does.
+  that share nothing, each recomputing s and p. :func:`call_split` returns
+  ``cat([dq, dkv])``, K2's packed cotangent, as the lab's ``call_split``
+  does. In bfloat16 they run on the tensor cores, the split bodies that
+  also carry K2 past its one-launch body's N limit, and round as K2 does
+  (p and ds bfloat16 only as operands of the products); K10, K11 and the
+  float32 K12 run on the CUDA cores in float32.
 
 :func:`main` holds K11 against K2 (``bwd_err``) and K10 against K1
 (``fwd_err``) at each of :data:`SHAPES`, then times the model's kernels
@@ -58,6 +61,9 @@ K12B = kernels.register(Kernel("lab_split_dkv", SOURCE, f"{LAB}:146"))
 # kernel codes of vst_lab_launch (csrc/attn_lab.cu)
 FWD_T, BWD_T, DQ, DKV = 0, 1, 2, 3
 
+# head dims the lab's kernels take: K10, K11 and the float32 K12 are
+# instantiated per head dim
+LAB_HEAD_DIMS = (8, 16, 32, 48, 64, 128)
 ITERS = 30
 # (name, B, N, H, D): the supernet's three stage widths at the train batch
 SHAPES = [("stage1", 512, 258, 6, 32),
@@ -121,7 +127,7 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vst_lab_launch.argtypes = [i, p, p, p, i, i, i, i, f, i, p]
         lib.vst_lab_launch.restype = i
-        lib.vst_lab_smem_bytes.argtypes = [i, i, i]
+        lib.vst_lab_smem_bytes.argtypes = [i, i, i, i]
         lib.vst_lab_smem_bytes.restype = ctypes.c_longlong
         lib._vst_typed = True
     return lib
@@ -134,12 +140,12 @@ def _launch(which: int, kernel: Kernel, qkv: torch.Tensor, do: Optional[torch.Te
     kernels.check_cuda_tensor(qkv, "qkv", ndim=3)
     b, n, w3 = qkv.shape
     d = A._head_dim(w3, 3, num_heads)
-    if d not in A.KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kernel.name} takes head_dim in {A.KERNEL_HEAD_DIMS}, got {d}")
+    if d not in LAB_HEAD_DIMS:
+        raise ValueError(f"{kernel.name} takes head_dim in {LAB_HEAD_DIMS}, got {d}")
     if do is not None:
         A._check_like(do, "do", qkv, (b, n, num_heads * d))
     lib = _lib()
-    smem = lib.vst_lab_smem_bytes(which, n, d)
+    smem = lib.vst_lab_smem_bytes(which, n, d, kernels.DTYPE_CODES[qkv.dtype])
     if smem > A.MAX_SMEM_BYTES:
         raise ValueError(f"{kernel.name} needs {smem} bytes of shared memory at N={n}, "
                          f"d={d}; a block has {A.MAX_SMEM_BYTES}")
