@@ -16,8 +16,17 @@ split bodies in bfloat16, which round as K2's body: each recomputes p, dp,
 delta and ds in float32 and takes p and ds as bfloat16 operands only. Its
 emulation is held to the split's plain versions and to the JAX lab's
 ``call_split`` in bfloat16 (``pl.pallas_call`` patched to interpret mode, as
-in test_torch_attn_lab.py). Inputs are numpy arrays from a seed, rounded to
-bfloat16.
+in test_torch_attn_lab.py).
+
+The lab's K10 (forward) and K11 (one-launch backward) keep the JAX lab's
+float32 function: in bfloat16 they run the same tensor-core bodies, but p
+and ds go into the products as bfloat16 hi/lo pairs (x_hi = bf16(x), x_lo =
+bf16(x - x_hi)), both products summed in float32, so p and ds keep about 16
+bits where one bfloat16 operand keeps 8. Their emulation is held to the
+lab's plain versions and to the JAX lab's ``_fwd_kernel_T`` and
+``_bwd_kernel_T`` in bfloat16, and shown to come closer to the float32
+function than K1's and K2's rounding. Inputs are numpy arrays from a seed,
+rounded to bfloat16.
 """
 
 import functools
@@ -96,6 +105,36 @@ def emulate_split(qkv: torch.Tensor, do: torch.Tensor, scale: float, h: int):
             torch.cat([dk.reshape(do.shape), dv.reshape(do.shape)], dim=2).to(torch.bfloat16))
 
 
+def _hi_lo(x: torch.Tensor):
+    """float32 x as the pair of bfloat16 values ``(bf16(x), bf16(x - hi))``."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def emulate_fwd_T(qkv: torch.Tensor, scale: float, h: int) -> torch.Tensor:
+    """K10's rounding on the tensor cores: s and softmax in f32, p split
+    into hi and lo, ``hi @ v + lo @ v`` summed in f32, out in bf16."""
+    q, k, v = A._split(qkv, h)
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    o = sum(torch.einsum("bhnm,bmhd->bnhd", part, v) for part in _hi_lo(p))
+    return o.reshape(qkv.shape[0], qkv.shape[1], -1).to(torch.bfloat16)
+
+
+def emulate_bwd_T(qkv: torch.Tensor, do: torch.Tensor, scale: float, h: int) -> torch.Tensor:
+    """K11's rounding on the tensor cores: p, dp, delta and ds in f32; p and
+    ds split into hi and lo as operands of dv, dq and dk, each product summed
+    in f32 over both parts."""
+    q, k, v = A._split(qkv, h)
+    g = do.float().view(q.shape)
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", g, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dv = sum(torch.einsum("bhnm,bnhd->bmhd", part, g) for part in _hi_lo(p))
+    dq = sum(torch.einsum("bhnm,bmhd->bnhd", part, k) for part in _hi_lo(ds)) * scale
+    dk = sum(torch.einsum("bhnm,bnhd->bmhd", part, q) for part in _hi_lo(ds)) * scale
+    return torch.stack((dq, dk, dv), dim=2).reshape(qkv.shape).to(torch.bfloat16)
+
+
 def _within_bf16_tol(got: torch.Tensor, want: torch.Tensor, name: str) -> None:
     """``|got - want| <= atol * max|want| + rtol * |want|``, chip_smoke's rule."""
     got, want = got.float(), want.float()
@@ -169,3 +208,55 @@ def test_split_rounding_within_tolerance_of_jax_lab_in_bf16(monkeypatch, n, h, d
     w = h * d
     _within_bf16_tol(dq, torch.from_numpy(want[..., :w]), "K12a")
     _within_bf16_tol(dkv, torch.from_numpy(want[..., w:]), "K12b")
+
+
+@pytest.mark.parametrize("n,h,d", SHAPES, ids=SHAPE_IDS)
+def test_lab_forward_rounding_within_tolerance_of_plain(n, h, d):
+    qkv, _ = _inputs(n, h, d, seed=n * h + d + 3)
+    x = torch.tensor(qkv).to(torch.bfloat16)
+    scale = d ** -0.5
+    _within_bf16_tol(emulate_fwd_T(x, scale, h), lab.fwd_T_plain(x, scale, h), "K10")
+
+
+@pytest.mark.parametrize("n,h,d", SHAPES, ids=SHAPE_IDS)
+def test_lab_backward_rounding_within_tolerance_of_plain(n, h, d):
+    qkv, do = _inputs(n, h, d, seed=n * h + d + 4)
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    scale = d ** -0.5
+    _within_bf16_tol(emulate_bwd_T(x, g, scale, h), lab.bwd_T_plain(x, g, scale, h), "K11")
+
+
+@pytest.mark.parametrize("n,h,d", JAX_SHAPES, ids=[f"n{n}h{h}d{d}" for n, h, d in JAX_SHAPES])
+def test_lab_rounding_within_tolerance_of_jax_lab_in_bf16(monkeypatch, n, h, d):
+    """The JAX lab's ``_fwd_kernel_T`` and ``_bwd_kernel_T`` on bfloat16
+    inputs in interpret mode against the emulated hi/lo rounding of K10/K11."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    qkv, do = _inputs(n, h, d, seed=3 * n + d)
+    scale = d ** -0.5
+    jqkv, jdo = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(do, jnp.bfloat16)
+    want_fwd = jax_lab.call_fwd(jax_lab._fwd_kernel_T, jqkv, scale, h, 1)
+    want_bwd = jax_lab.call_bwd(jax_lab._bwd_kernel_T, jqkv, jdo, scale, h, 1)
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    _within_bf16_tol(emulate_fwd_T(x, scale, h),
+                     torch.from_numpy(np.asarray(want_fwd, np.float32)), "K10")
+    _within_bf16_tol(emulate_bwd_T(x, g, scale, h),
+                     torch.from_numpy(np.asarray(want_bwd, np.float32)), "K11")
+
+
+@pytest.mark.parametrize("n,h,d", SHAPES, ids=SHAPE_IDS)
+def test_lab_rounding_is_closer_to_f32_than_k1_k2(n, h, d):
+    """Mean absolute error against the float32 function (the plain versions
+    on float32 inputs, unrounded): the hi/lo pairs of K10 and K11 come
+    strictly closer than the single bf16 operands of K1 and K2."""
+    qkv, do = _inputs(n, h, d, seed=n * h + d + 5)
+    x, g = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(do).to(torch.bfloat16)
+    scale = d ** -0.5
+
+    def mean_err(got, want):
+        return float((got.float() - want).abs().mean())
+
+    fwd = lab.fwd_T_plain(x.float(), scale, h)
+    assert mean_err(emulate_fwd_T(x, scale, h), fwd) < mean_err(emulate_fwd(x, scale, h), fwd)
+    bwd = lab.bwd_T_plain(x.float(), g.float(), scale, h)
+    assert (mean_err(emulate_bwd_T(x, g, scale, h), bwd)
+            < mean_err(emulate_bwd(x, g, scale, h), bwd))

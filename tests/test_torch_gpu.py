@@ -600,6 +600,57 @@ def test_lab_fwd_T_is_not_k1_in_bf16(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,d", STAGES, ids=IDS)
+def test_lab_bf16_kernels_are_closer_to_f32_than_k1_k2(cuda, n, c, h, d):
+    """In bf16, K10 and K11 take p and ds as hi/lo pairs: their mean error
+    against the lab's f32 function (the plain versions on f32 inputs) is
+    strictly below that of K1's rounding (p as one bf16 operand) and of K2
+    on the card."""
+    qkv, do = _projection(cuda, n, h, d, torch.bfloat16)
+    scale = d ** -0.5
+
+    def mean_err(got, want):
+        return float((got.float() - want).abs().mean())
+
+    fwd = L.fwd_T_plain(qkv.float(), scale, h)
+    assert (mean_err(L.fwd_T_cuda(qkv, scale, h), fwd)
+            < mean_err(A.attention_qkv_plain(qkv, scale, h), fwd))
+    bwd = L.bwd_T_plain(qkv.float(), do.float(), scale, h)
+    assert (mean_err(L.bwd_T_cuda(qkv, do, scale, h), bwd)
+            < mean_err(A.attention_qkv_bwd_cuda(qkv, do, scale, h), bwd))
+
+
+# the largest N each lab kernel takes at D = 32 by dtype (shared memory; bf16:
+# the tensor-core bodies of K1 and K2's one launch; PERF.md section 7)
+LAB_MAX_N = {("K10", torch.bfloat16): 1376, ("K10", torch.float32): 587,
+             ("K11", torch.bfloat16): 624, ("K11", torch.float32): 283}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K10", "K11"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_lab_kernels_take_their_largest_n(cuda, kernel, dtype):
+    """K10 and K11 against their plain versions at the largest N their
+    shared memory holds at D = 32, and refused by name one token past it
+    (K11 stays one launch: it takes no split route)."""
+    cuda_fn, plain, record, with_do = LAB_KERNELS[kernel]
+    top = LAB_MAX_N[(kernel, dtype)]
+
+    def args(n):
+        qkv, do = _projection(cuda, n, 2, 32, dtype, b=1)
+        return (qkv, do, 32 ** -0.5, 2) if with_do else (qkv, 32 ** -0.5, 2)
+
+    before = record.launches
+    got = cuda_fn(*args(top))
+    torch.cuda.synchronize()
+    assert record.launches == before + 1
+    _close(got, plain(*args(top)), 2e-2 if dtype == torch.bfloat16 else 1e-4)
+    with pytest.raises(ValueError, match=f"{record.name} needs .* shared memory"):
+        cuda_fn(*args(top + 1))
+    assert record.launches == before + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kernel", sorted(LAB_KERNELS))
 def test_lab_wrappers_raise_on_what_the_kernels_do_not_take(cuda, kernel):
     cuda_fn, _, record, with_do = LAB_KERNELS[kernel]

@@ -60,15 +60,17 @@
 // 23% / 47% of the rows at N = 257 / 65 / 17, wgmma's 64-row tiles 20% / 49%
 // / 73%, so the warp-level mma.sync.
 //
-// Design of the bf16 bodies. A block owns one (example, head) and 1-8 warps,
-// as many as spread the 16-row tiles of the sequence evenly. Rows live in
-// shared memory as bf16 with the head dim padded with zeros to DP and a row
-// stride of DP + 8 elements (attention_tc.cuh), which makes every ldmatrix
-// free of bank conflicts; rows past N are zero. Operands come in by 16-byte
-// cp.async and reach the MMAs through ldmatrix (.trans for the operands read
-// along the sequence); C fragments turn into A fragments in registers, and
-// movmatrix transposes ds^T into ds for dq. Exponentials run in base 2 on the
-// SFU (ex2.approx) from s * scale * log2(e).
+// Design of the bf16 bodies (in attention_tc.cuh, shared with the lab's K10
+// and K11, which instantiate them with p and ds kept as bf16 hi/lo pairs;
+// this file instantiates them with one bf16 operand each). A block owns one
+// (example, head) and 1-8 warps, as many as spread the 16-row tiles of the
+// sequence evenly. Rows live in shared memory as bf16 with the head dim
+// padded with zeros to DP and a row stride of DP + 8 elements, which makes
+// every ldmatrix free of bank conflicts; rows past N are zero. Operands come
+// in by 16-byte cp.async and reach the MMAs through ldmatrix (.trans for the
+// operands read along the sequence); C fragments turn into A fragments in
+// registers, and movmatrix transposes ds^T into ds for dq. Exponentials run
+// in base 2 on the SFU (ex2.approx) from s * scale * log2(e).
 //   forward   K and V resident. A warp owns 16 query rows (its Q fragments in
 //             registers) and makes two passes over the keys, 16 at a time:
 //             (1) S = Q K^T, the row max and sum (rescaled as the max moves);
@@ -319,20 +321,9 @@ size_t fwd_smem(int n, int d) { return sizeof(float) * (size_t)n * (2 * d + 1); 
 size_t dq_smem(int n, int d) { return sizeof(float) * (size_t)n * 2 * (d + 1); }
 size_t dkv_smem(int n, int d) { return sizeof(float) * (size_t)n * (2 * (d + 1) + 3); }
 
-// --- bfloat16 bodies (tensor cores) ----------------------------------------
+// --- bfloat16 bodies (tensor cores): attention_tc.cuh ------------------------
 
 namespace tc {
-
-size_t fwd_bytes(int n, int d) {
-  const size_t tiles = (n + 15) / 16, rs = rs_of(d);
-  return sizeof(bf16) * rs * 16 * (2 * tiles + warps_for((int)tiles));
-}
-
-size_t bwd_bytes(int n, int d) {
-  const size_t tiles = (n + 15) / 16, rs = rs_of(d), np = 16 * tiles;
-  return sizeof(bf16) * rs * (2 * np + 2 * 16 * (warps_for((int)tiles) + 1)) +
-         sizeof(float) * (np * rs + 3 * np);
-}
 
 // the backward takes the split route where the one-launch body does not fit
 bool bwd_split(int n, int d) { return bwd_bytes(n, d) > kMaxSmem; }
@@ -341,228 +332,6 @@ size_t bwd_route_bytes(int n, int d) {
   if (!bwd_split(n, d)) return bwd_bytes(n, d);
   const size_t a = split_dq_bytes(n, d), b = split_dkv_bytes(n, d);
   return a > b ? a : b;
-}
-
-template <int DP, int L>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int batch, int n,
-                int heads, int d, float scale) {
-  using G = Geom<DP>;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int tiles = (n + 15) >> 4, np = tiles * 16;
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);   // np x RS
-  bf16* Vs = Ks + np * G::RS;                     // np x RS
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Qs = Vs + np * G::RS + warp * 16 * G::RS;  // this warp's 16 x RS tile
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const Strides in = qkv_strides<L>(batch, n, heads * d);
-  const Strides wide = wide_strides<L>(batch, n, heads * d);
-  load_rows<DP>(Ks, k, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
-  load_rows<DP>(Vs, v, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  const float sl2 = scale * kLog2e;
-  for (int qt = warp; qt < tiles; qt += nw) {
-    load_rows<DP>(Qs, q, in, b, h, d, qt * 16, 16, n, lane, 32);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncwarp();
-    uint32_t qa[G::KT][4];
-    load_a<DP>(qa, Qs, 0, lane);
-
-    // pass 1: each thread's running max and sum for rows g and g + 8
-    float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
-    for (int kt = 0; kt < tiles; ++kt) {
-      float s[2][4];
-      scores<DP>(s, qa, Ks, kt * 16, n, sl2, lane);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m = fmaxf(fmaxf(mx[r], fmaxf(s[0][2 * r], s[0][2 * r + 1])),
-                              fmaxf(s[1][2 * r], s[1][2 * r + 1]));
-        const float base = base_of(m);
-        sm[r] = sm[r] * exp2_fast(mx[r] - base) + exp2_fast(s[0][2 * r] - base) +
-                exp2_fast(s[0][2 * r + 1] - base) + exp2_fast(s[1][2 * r] - base) +
-                exp2_fast(s[1][2 * r + 1] - base);
-        mx[r] = m;
-      }
-    }
-    float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m = quad_max(mx[r]);
-      inv[r] = 1.f / quad_sum(sm[r] * exp2_fast(mx[r] - m));
-      mx[r] = m;
-    }
-
-    // pass 2: p normalised, rounded to bf16, O += P V
-    float o[G::NT][4];
-    zero<DP>(o);
-    for (int kt = 0; kt < tiles; ++kt) {
-      float s[2][4];
-      scores<DP>(s, qa, Ks, kt * 16, n, sl2, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = exp2_fast(s[j][e] - mx[e >> 1]) * inv[e >> 1];
-      uint32_t pa[4];
-      to_a(pa, s);
-      acc_rows<DP>(o, pa, Vs, kt * 16, lane);
-    }
-    __syncwarp();
-    put_rows<DP>(Qs, o, 1.f, lane);
-    __syncwarp();
-    store_rows<DP>(out, wide, b, h, d, Qs, qt * 16, 16, n, lane, 32);
-    __syncwarp();
-  }
-}
-
-template <int DP, int L>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                int batch, int n, int heads, int d, float scale) {
-  using G = Geom<DP>;
-  constexpr int SLOT = 2 * 16 * G::RS;   // a ring slot: 16 rows of q, then of dout
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int tiles = (n + 15) >> 4, np = tiles * 16;
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);     // np x RS
-  bf16* Vs = Ks + np * G::RS;                       // np x RS
-  bf16* ring = Vs + np * G::RS;                     // (nw + 1) slots
-  float* dQs = reinterpret_cast<float*>(ring + (nw + 1) * SLOT);  // np x RS, f32
-  float* M = dQs + np * G::RS;                      // row max of s * scale * log2 e
-  float* IL = M + np;                               // 1 / row sum
-  float* DL = IL + np;                              // delta
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const Strides in = qkv_strides<L>(batch, n, heads * d);
-  const Strides wide = wide_strides<L>(batch, n, heads * d);
-  load_rows<DP>(Ks, k, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
-  load_rows<DP>(Vs, v, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < np * G::RS / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(dQs)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  cp_async_wait_all();
-  __syncthreads();
-
-  const float sl2 = scale * kLog2e;
-  const int g = lane >> 2, t = lane & 3;
-
-  // phase 1: each query row's max, sum and delta, a warp per 16 rows
-  {
-    bf16* Qs = ring + warp * SLOT;
-    bf16* Gs = Qs + 16 * G::RS;
-    for (int qt = warp; qt < tiles; qt += nw) {
-      load_rows<DP>(Qs, q, in, b, h, d, qt * 16, 16, n, lane, 32);
-      load_rows<DP>(Gs, dout, wide, b, h, d, qt * 16, 16, n, lane, 32);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncwarp();
-      uint32_t qa[G::KT][4], ga[G::KT][4];
-      load_a<DP>(qa, Qs, 0, lane);
-      load_a<DP>(ga, Gs, 0, lane);
-      __syncwarp();
-      float m[2], il[2], dl[2];
-      row_stats<DP>(m, il, dl, qa, ga, Ks, Vs, tiles, n, sl2, lane);
-      if (t == 0) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = qt * 16 + g + 8 * r;
-          M[i] = m[r];
-          IL[i] = il[r];
-          DL[i] = dl[r];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // phase 2: warps over key blocks, rotating over the query tiles; stream
-  // position p holds query tile p % tiles in ring slot p % (nw + 1)
-  const int rounds = (tiles + nw - 1) / nw;
-  auto load_slot = [&](int p) {
-    bf16* dst = ring + (p % (nw + 1)) * SLOT;
-    const int row0 = (p % tiles) * 16;
-    load_rows<DP>(dst, q, in, b, h, d, row0, 16, n, threadIdx.x, blockDim.x);
-    load_rows<DP>(dst + 16 * G::RS, dout, wide, b, h, d, row0, 16, n, threadIdx.x,
-                  blockDim.x);
-  };
-  for (int p = 0; p < nw; ++p) load_slot(p);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int r = 0; r < rounds; ++r) {
-    const int kb = r * nw + warp;
-    const bool active = kb < tiles;
-    float dka[G::NT][4], dva[G::NT][4];
-    uint32_t ka[G::KT][4], va[G::KT][4];
-    zero<DP>(dka);
-    zero<DP>(dva);
-    if (active) {
-      load_a<DP>(ka, Ks, kb * 16, lane);
-      load_a<DP>(va, Vs, kb * 16, lane);
-    }
-    for (int step = 0; step < tiles; ++step) {
-      const int sigma = r * tiles + step;
-      load_slot(sigma + nw);  // the next step's new tile, into the slot this step frees
-      cp_async_commit();
-      if (active) {
-        const int p = sigma + warp, qt = p % tiles;
-        const bf16* Qs = ring + (p % (nw + 1)) * SLOT;
-        uint32_t dsa[4];
-        kv_step<DP>(dka, dva, dsa, ka, va, Qs, Qs + 16 * G::RS, M, IL, DL, qt, kb, n, sl2,
-                    lane);
-        // dS = (dS^T)^T, 8x8 block by block, then dQ_tile += dS K_blk
-        const uint32_t dsq[4] = {transpose8(dsa[0]), transpose8(dsa[2]), transpose8(dsa[1]),
-                                 transpose8(dsa[3])};
-#pragma unroll
-        for (int dpi = 0; dpi < G::KT; ++dpi) {
-          uint32_t kb4[4];
-          ldsm4_t(kb4, at_rows<DP>(Ks, kb * 16, dpi * 16, lane));
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float* r0 = dQs + (qt * 16 + g) * G::RS + 8 * (2 * dpi + half) + 2 * t;
-            float* r1 = r0 + 8 * G::RS;
-            const float2 x0 = *reinterpret_cast<float2*>(r0), x1 = *reinterpret_cast<float2*>(r1);
-            float c4[4] = {x0.x, x0.y, x1.x, x1.y};
-            mma(c4, dsq, kb4[2 * half], kb4[2 * half + 1]);
-            *reinterpret_cast<float2*>(r0) = make_float2(c4[0], c4[1]);
-            *reinterpret_cast<float2*>(r1) = make_float2(c4[2], c4[3]);
-          }
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (active) {
-      // this warp alone reads rows kb of K and V in phase 2: reuse them
-      bf16* dkr = Ks + kb * 16 * G::RS;
-      bf16* dvr = Vs + kb * 16 * G::RS;
-      put_rows<DP>(dkr, dka, scale, lane);
-      put_rows<DP>(dvr, dva, 1.f, lane);
-      __syncwarp();
-      store_rows<DP>(dk, in, b, h, d, dkr, kb * 16, 16, n, lane, 32);
-      store_rows<DP>(dv, in, b, h, d, dvr, kb * 16, 16, n, lane, 32);
-    }
-  }
-
-  // dQ * scale, 8 columns a thread
-  const int ch = d >> 3;
-  for (int idx = threadIdx.x; idx < n * G::CHP; idx += blockDim.x) {
-    const int i = idx / G::CHP, c = idx - i * G::CHP;
-    if (c >= ch) continue;
-    const float* x = dQs + i * G::RS + c * 8;
-    uint4 w;
-    w.x = pack(x[0] * scale, x[1] * scale);
-    w.y = pack(x[2] * scale, x[3] * scale);
-    w.z = pack(x[4] * scale, x[5] * scale);
-    w.w = pack(x[6] * scale, x[7] * scale);
-    *reinterpret_cast<uint4*>(in.row(dq, b, i) + h * d + c * 8) = w;
-  }
 }
 
 }  // namespace tc

@@ -1,6 +1,24 @@
 // What the attention kernels of attention.cu and attn_lab.cu share: the
-// layouts and their strides, the f32 staging helpers, and the bf16
-// tensor-core helpers with the two bodies of the split backward.
+// layouts and their strides, the f32 staging helpers, the bf16 tensor-core
+// helpers, the one-launch forward and backward bodies, and the two bodies of
+// the split backward.
+//
+// The one-launch bodies (their design is described in attention.cu) carry
+// K1/K2, K6/K7 and K8/K9 there, and the lab's K10 and K11 in attn_lab.cu,
+// by a compile-time flag kF32P:
+//   false  p (forward), and p and ds (backward), go into their products as
+//          one bf16 operand each: K1/K2's rounding. attention.cu
+//          instantiates only this.
+//   true   each goes in as a pair x_hi = bf16(x), x_lo = bf16(x - x_hi)
+//          (to_a over P = 2 parts), both products summed in the f32
+//          accumulators against the same B fragments: x keeps about 16
+//          bits, within 2^-16 |x| of its f32 value, so the lab's f32
+//          function holds where one bf16 operand would move it. The
+//          forward runs four N^2*D products for three, the backward ten
+//          for seven; dS is split before movmatrix transposes it, so dQ
+//          sees the parts dK saw. attn_lab.cu instantiates only this, on
+//          the packed layout. The inputs q, k, v and do are bf16 already,
+//          so they need no lo half.
 //
 // The split backward replaces the JAX lab's pair (vit_search_tpu/tools/
 // attn_lab.py):
@@ -148,6 +166,20 @@ inline int warps_for(int tiles) {
 
 inline size_t rs_of(int d) { return (size_t)((d + 15) / 16 * 16 + 8); }
 
+// Shared memory of the one-launch forward: K and V, a Q tile per warp ...
+inline size_t fwd_bytes(int n, int d) {
+  const size_t tiles = (n + 15) / 16, rs = rs_of(d);
+  return sizeof(bf16) * rs * 16 * (2 * tiles + warps_for((int)tiles));
+}
+
+// ... and of the one-launch backward: K and V, the ring of Q and dO tiles,
+// the f32 dQ and each query row's three statistics.
+inline size_t bwd_bytes(int n, int d) {
+  const size_t tiles = (n + 15) / 16, rs = rs_of(d), np = 16 * tiles;
+  return sizeof(bf16) * rs * (2 * np + 2 * 16 * (warps_for((int)tiles) + 1)) +
+         sizeof(float) * (np * rs + 3 * np);
+}
+
 // Shared memory of the split's dq pass: K and V, a Q and a dO tile per warp.
 inline size_t split_dq_bytes(int n, int d) {
   const size_t tiles = (n + 15) / 16, rs = rs_of(d);
@@ -221,6 +253,29 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c)[2][4]) {
   a[3] = pack(c[1][2], c[1][3]);
 }
 
+// The A fragments of a C pair in P bf16 parts. P = 1: x rounded to bf16, as
+// above. P = 2: the pair x_hi = bf16(x), x_lo = bf16(x - x_hi) (x - x_hi is
+// exact in f32), whose two products summed in the f32 accumulators come
+// within about 2^-16 |x| of x's own, where bf16(x) alone is 2^-8 off.
+template <int P>
+__device__ __forceinline__ void to_a(uint32_t (&a)[P][4], const float (&c)[2][4]) {
+  static_assert(P == 1 || P == 2, "a bf16 operand, or a hi/lo pair");
+  to_a(a[0], c);
+  if constexpr (P == 2) {
+    float r[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const float2 h =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[0][2 * j + e / 2]));
+        r[j][e] = c[j][e] - h.x;
+        r[j][e + 1] = c[j][e + 1] - h.y;
+      }
+    to_a(a[1], r);
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -269,16 +324,20 @@ __device__ __forceinline__ void dot_rows(float (&s)[2][4], const uint32_t (&a)[G
   }
 }
 
-// acc (16 x DP) += a (16 x 16) times rows k0..k0+15 of x (DP wide).
-template <int DP>
-__device__ __forceinline__ void acc_rows(float (&acc)[Geom<DP>::NT][4], const uint32_t (&a)[4],
+// acc (16 x DP) += a (16 x 16, the sum of its P bf16 parts) times rows
+// k0..k0+15 of x (DP wide), the B fragments loaded once for all parts.
+template <int DP, int P>
+__device__ __forceinline__ void acc_rows(float (&acc)[Geom<DP>::NT][4], const uint32_t (&a)[P][4],
                                          const bf16* x, int k0, int lane) {
 #pragma unroll
   for (int dp = 0; dp < Geom<DP>::KT; ++dp) {
     uint32_t b[4];
     ldsm4_t(b, at_rows<DP>(x, k0, dp * 16, lane));
-    mma(acc[2 * dp], a, b[0], b[1]);
-    mma(acc[2 * dp + 1], a, b[2], b[3]);
+#pragma unroll
+    for (int part = 0; part < P; ++part) {
+      mma(acc[2 * dp], a[part], b[0], b[1]);
+      mma(acc[2 * dp + 1], a[part], b[2], b[3]);
+    }
   }
 }
 
@@ -411,11 +470,11 @@ __device__ __forceinline__ void row_stats(float (&m)[2], float (&il)[2], float (
 // V fragments (ka, va; keys kb*16..) and a query tile's 16 rows of q and dout
 // at Qt and Gt (query rows qt*16..), and each query row's statistics M, IL and
 // DL, S^T = K_blk Q^T, P^T, dP^T = V_blk dO^T, dS^T = P^T (dP^T - delta);
-// dV += P^T dO, dK += dS^T Q. dS^T is left in dsa, the A fragment of the
-// product.
-template <int DP>
+// dV += P^T dO, dK += dS^T Q. P^T and dS^T go into the products as P bf16
+// parts (to_a); dS^T is left in dsa, the A fragments of the product.
+template <int DP, int P>
 __device__ __forceinline__ void kv_step(float (&dka)[Geom<DP>::NT][4],
-                                        float (&dva)[Geom<DP>::NT][4], uint32_t (&dsa)[4],
+                                        float (&dva)[Geom<DP>::NT][4], uint32_t (&dsa)[P][4],
                                         const uint32_t (&ka)[Geom<DP>::KT][4],
                                         const uint32_t (&va)[Geom<DP>::KT][4], const bf16* Qt,
                                         const bf16* Gt, const float* M, const float* IL,
@@ -439,11 +498,252 @@ __device__ __forceinline__ void kv_step(float (&dka)[Geom<DP>::NT][4],
         dp[j][e] = pv * (dp[j][e] - dl);
       }
     }
-  uint32_t pa[4];
+  uint32_t pa[P][4];
   to_a(pa, s);    // P^T
   to_a(dsa, dp);  // dS^T
   acc_rows<DP>(dva, pa, Gt, 0, lane);
   acc_rows<DP>(dka, dsa, Qt, 0, lane);
+}
+
+// --- the one-launch bodies ---------------------------------------------------
+
+// The forward: out = softmax(q k^T * scale) v, p normalised in f32 and then
+// rounded to bf16 (kF32P false: K1, K6, K8) or split into a hi/lo pair
+// (kF32P true: the lab's K10, whose p stays f32).
+template <int DP, int L, bool kF32P = false>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int batch, int n,
+                int heads, int d, float scale) {
+  using G = Geom<DP>;
+  constexpr int P = kF32P ? 2 : 1;  // bf16 parts of each p operand
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tiles = (n + 15) >> 4, np = tiles * 16;
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);   // np x RS
+  bf16* Vs = Ks + np * G::RS;                     // np x RS
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* Qs = Vs + np * G::RS + warp * 16 * G::RS;  // this warp's 16 x RS tile
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const Strides in = qkv_strides<L>(batch, n, heads * d);
+  const Strides wide = wide_strides<L>(batch, n, heads * d);
+  load_rows<DP>(Ks, k, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
+  load_rows<DP>(Vs, v, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float sl2 = scale * kLog2e;
+  for (int qt = warp; qt < tiles; qt += nw) {
+    load_rows<DP>(Qs, q, in, b, h, d, qt * 16, 16, n, lane, 32);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncwarp();
+    uint32_t qa[G::KT][4];
+    load_a<DP>(qa, Qs, 0, lane);
+
+    // pass 1: each thread's running max and sum for rows g and g + 8
+    float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+    for (int kt = 0; kt < tiles; ++kt) {
+      float s[2][4];
+      scores<DP>(s, qa, Ks, kt * 16, n, sl2, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = fmaxf(fmaxf(mx[r], fmaxf(s[0][2 * r], s[0][2 * r + 1])),
+                              fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+        const float base = base_of(m);
+        sm[r] = sm[r] * exp2_fast(mx[r] - base) + exp2_fast(s[0][2 * r] - base) +
+                exp2_fast(s[0][2 * r + 1] - base) + exp2_fast(s[1][2 * r] - base) +
+                exp2_fast(s[1][2 * r + 1] - base);
+        mx[r] = m;
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m = quad_max(mx[r]);
+      inv[r] = 1.f / quad_sum(sm[r] * exp2_fast(mx[r] - m));
+      mx[r] = m;
+    }
+
+    // pass 2: p normalised, as bf16 (or a hi/lo pair), O += P V
+    float o[G::NT][4];
+    zero<DP>(o);
+    for (int kt = 0; kt < tiles; ++kt) {
+      float s[2][4];
+      scores<DP>(s, qa, Ks, kt * 16, n, sl2, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = exp2_fast(s[j][e] - mx[e >> 1]) * inv[e >> 1];
+      uint32_t pa[P][4];
+      to_a(pa, s);
+      acc_rows<DP>(o, pa, Vs, kt * 16, lane);
+    }
+    __syncwarp();
+    put_rows<DP>(Qs, o, 1.f, lane);
+    __syncwarp();
+    store_rows<DP>(out, wide, b, h, d, Qs, qt * 16, 16, n, lane, 32);
+    __syncwarp();
+  }
+}
+
+// The backward in one launch (q, k, v and their cotangents in layout L): p
+// and ds go into the products as bf16 operands (kF32P false: K2, K7, K9) or
+// as hi/lo pairs (kF32P true: the lab's K11, f32 throughout).
+template <int DP, int L, bool kF32P = false>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                int batch, int n, int heads, int d, float scale) {
+  using G = Geom<DP>;
+  constexpr int P = kF32P ? 2 : 1;       // bf16 parts of each p and ds operand
+  constexpr int SLOT = 2 * 16 * G::RS;   // a ring slot: 16 rows of q, then of dout
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tiles = (n + 15) >> 4, np = tiles * 16;
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);     // np x RS
+  bf16* Vs = Ks + np * G::RS;                       // np x RS
+  bf16* ring = Vs + np * G::RS;                     // (nw + 1) slots
+  float* dQs = reinterpret_cast<float*>(ring + (nw + 1) * SLOT);  // np x RS, f32
+  float* M = dQs + np * G::RS;                      // row max of s * scale * log2 e
+  float* IL = M + np;                               // 1 / row sum
+  float* DL = IL + np;                              // delta
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const Strides in = qkv_strides<L>(batch, n, heads * d);
+  const Strides wide = wide_strides<L>(batch, n, heads * d);
+  load_rows<DP>(Ks, k, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
+  load_rows<DP>(Vs, v, in, b, h, d, 0, np, n, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < np * G::RS / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(dQs)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float sl2 = scale * kLog2e;
+  const int g = lane >> 2, t = lane & 3;
+
+  // phase 1: each query row's max, sum and delta, a warp per 16 rows
+  {
+    bf16* Qs = ring + warp * SLOT;
+    bf16* Gs = Qs + 16 * G::RS;
+    for (int qt = warp; qt < tiles; qt += nw) {
+      load_rows<DP>(Qs, q, in, b, h, d, qt * 16, 16, n, lane, 32);
+      load_rows<DP>(Gs, dout, wide, b, h, d, qt * 16, 16, n, lane, 32);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncwarp();
+      uint32_t qa[G::KT][4], ga[G::KT][4];
+      load_a<DP>(qa, Qs, 0, lane);
+      load_a<DP>(ga, Gs, 0, lane);
+      __syncwarp();
+      float m[2], il[2], dl[2];
+      row_stats<DP>(m, il, dl, qa, ga, Ks, Vs, tiles, n, sl2, lane);
+      if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = qt * 16 + g + 8 * r;
+          M[i] = m[r];
+          IL[i] = il[r];
+          DL[i] = dl[r];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: warps over key blocks, rotating over the query tiles; stream
+  // position p holds query tile p % tiles in ring slot p % (nw + 1)
+  const int rounds = (tiles + nw - 1) / nw;
+  auto load_slot = [&](int p) {
+    bf16* dst = ring + (p % (nw + 1)) * SLOT;
+    const int row0 = (p % tiles) * 16;
+    load_rows<DP>(dst, q, in, b, h, d, row0, 16, n, threadIdx.x, blockDim.x);
+    load_rows<DP>(dst + 16 * G::RS, dout, wide, b, h, d, row0, 16, n, threadIdx.x,
+                  blockDim.x);
+  };
+  for (int p = 0; p < nw; ++p) load_slot(p);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int r = 0; r < rounds; ++r) {
+    const int kb = r * nw + warp;
+    const bool active = kb < tiles;
+    float dka[G::NT][4], dva[G::NT][4];
+    uint32_t ka[G::KT][4], va[G::KT][4];
+    zero<DP>(dka);
+    zero<DP>(dva);
+    if (active) {
+      load_a<DP>(ka, Ks, kb * 16, lane);
+      load_a<DP>(va, Vs, kb * 16, lane);
+    }
+    for (int step = 0; step < tiles; ++step) {
+      const int sigma = r * tiles + step;
+      load_slot(sigma + nw);  // the next step's new tile, into the slot this step frees
+      cp_async_commit();
+      if (active) {
+        const int p = sigma + warp, qt = p % tiles;
+        const bf16* Qs = ring + (p % (nw + 1)) * SLOT;
+        uint32_t dsa[P][4];
+        kv_step<DP>(dka, dva, dsa, ka, va, Qs, Qs + 16 * G::RS, M, IL, DL, qt, kb, n, sl2,
+                    lane);
+        // dS = (dS^T)^T, 8x8 block by block (each part: split before the
+        // transpose, so dQ sees the parts dK saw), then dQ_tile += dS K_blk
+        uint32_t dsq[P][4];
+#pragma unroll
+        for (int part = 0; part < P; ++part) {
+          dsq[part][0] = transpose8(dsa[part][0]);
+          dsq[part][1] = transpose8(dsa[part][2]);
+          dsq[part][2] = transpose8(dsa[part][1]);
+          dsq[part][3] = transpose8(dsa[part][3]);
+        }
+#pragma unroll
+        for (int dpi = 0; dpi < G::KT; ++dpi) {
+          uint32_t kb4[4];
+          ldsm4_t(kb4, at_rows<DP>(Ks, kb * 16, dpi * 16, lane));
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float* r0 = dQs + (qt * 16 + g) * G::RS + 8 * (2 * dpi + half) + 2 * t;
+            float* r1 = r0 + 8 * G::RS;
+            const float2 x0 = *reinterpret_cast<float2*>(r0), x1 = *reinterpret_cast<float2*>(r1);
+            float c4[4] = {x0.x, x0.y, x1.x, x1.y};
+#pragma unroll
+            for (int part = 0; part < P; ++part)
+              mma(c4, dsq[part], kb4[2 * half], kb4[2 * half + 1]);
+            *reinterpret_cast<float2*>(r0) = make_float2(c4[0], c4[1]);
+            *reinterpret_cast<float2*>(r1) = make_float2(c4[2], c4[3]);
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (active) {
+      // this warp alone reads rows kb of K and V in phase 2: reuse them
+      bf16* dkr = Ks + kb * 16 * G::RS;
+      bf16* dvr = Vs + kb * 16 * G::RS;
+      put_rows<DP>(dkr, dka, scale, lane);
+      put_rows<DP>(dvr, dva, 1.f, lane);
+      __syncwarp();
+      store_rows<DP>(dk, in, b, h, d, dkr, kb * 16, 16, n, lane, 32);
+      store_rows<DP>(dv, in, b, h, d, dvr, kb * 16, 16, n, lane, 32);
+    }
+  }
+
+  // dQ * scale, 8 columns a thread
+  const int ch = d >> 3;
+  for (int idx = threadIdx.x; idx < n * G::CHP; idx += blockDim.x) {
+    const int i = idx / G::CHP, c = idx - i * G::CHP;
+    if (c >= ch) continue;
+    const float* x = dQs + i * G::RS + c * 8;
+    uint4 w;
+    w.x = pack(x[0] * scale, x[1] * scale);
+    w.y = pack(x[2] * scale, x[3] * scale);
+    w.z = pack(x[4] * scale, x[5] * scale);
+    w.w = pack(x[6] * scale, x[7] * scale);
+    *reinterpret_cast<uint4*>(in.row(dq, b, i) + h * d + c * 8) = w;
+  }
 }
 
 // --- the split backward ------------------------------------------------------
@@ -499,7 +799,7 @@ attn_split_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float pv = exp2_fast(s[j][e] - m[e >> 1]) * il[e >> 1];
           dp[j][e] = pv * (dp[j][e] - dl[e >> 1]);   // ds; 0 at keys past n
         }
-      uint32_t dsa[4];
+      uint32_t dsa[1][4];
       to_a(dsa, dp);
       acc_rows<DP>(dqa, dsa, Ks, kt * 16, lane);
     }
@@ -586,7 +886,7 @@ attn_split_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     zero<DP>(dva);
     for (int step = 0; step < tiles; ++step) {
       const int qt = (step + warp) % tiles;   // the one-launch body's order
-      uint32_t dsa[4];
+      uint32_t dsa[1][4];
       kv_step<DP>(dka, dva, dsa, ka, va, X0 + qt * 16 * G::RS, X1 + qt * 16 * G::RS, M, IL, DL,
                   qt, kb, n, sl2, lane);
     }

@@ -18,24 +18,40 @@
 //   K10       s = q k^T * scale; p = softmax_rows(s); o = p v with p NOT
 //             rounded: the lab lifts v to p's f32 (attn_lab.py:65), where K1
 //             rounds p to v's dtype (attention.cu), so in bf16 K10 is not K1's
-//             function. o is stored in the dtype of qkv. All in f32.
+//             function. o is stored in the dtype of qkv.
 //   K11, K12  K2's function: dv = p^T do; dp = do v^T; delta = rowsum(dp * p);
 //             ds = p * (dp - delta); dq = ds k * scale; dk = ds^T q * scale.
-//             K11 and the f32 K12 in f32 throughout; the bf16 K12 rounds as
-//             K2's tensor-core body (p and ds bf16 only as MMA operands).
+//   K10 and K11 keep p and ds at f32 precision in both dtypes; the bf16 K12
+//   rounds as K2's tensor-core body (p and ds bf16 only as MMA operands).
 //
 // What bounds them on this card: as for K1/K2, the function is bound by bytes
 // at the tensor cores' rate (about 4*N*D flops per (example, head) and row in
-// the forward, 10*N*D in the backward, against 8*D and 14*D bytes). K10, K11
-// and the f32 K12 compute on the CUDA cores in f32, so their dot products are
-// their limit. A bf16 K12a or K12b runs the tensor-core split bodies of
-// attention_tc.cuh (their design is described there), the bodies that also
-// carry K2 past its one-launch body's N limit: the same instantiation, with
-// the lab's output strides.
+// the forward, 10*N*D in the backward, against 8*D and 14*D bytes).
 //
-// Design of the CUDA-core bodies. The TPU keeps whole (N, N) f32 score tiles
-// in VMEM; at N = 258 one is 266 KB, more than the 227 KB of shared memory a
-// block can have. A block owns one (example, head) and stages what it reads
+// Two bodies per kernel, chosen by dtype:
+//   bfloat16  the tensor-core bodies of attention_tc.cuh, on the packed
+//             layout. K10 and K11 are K1's two-pass forward and K2's
+//             one-launch backward instantiated with kF32P: p and ds go into
+//             their products as bf16 hi/lo pairs (x_hi = bf16(x), x_lo =
+//             bf16(x - x_hi)), both products summed in the f32 accumulators,
+//             so they keep the lab's f32 function to about 2^-16 of each p
+//             and ds where one bf16 operand would round them to 2^-8. That
+//             is four N^2*D products in the forward for K1's three, ten in
+//             the backward for K2's seven; the MMAs stay far under the bytes
+//             bound. Their shared memory is K1's and K2's, so K10 takes N up
+//             to 1376 and K11 up to 624 at D = 32 (one launch by definition:
+//             past that it refuses, it takes no split route). The "T" of the
+//             TPU kernels, the sequence on lanes with one swapaxes per
+//             result, is a TPU layout trick; these bodies keep the function
+//             and store along rows. K12a and K12b are the split bodies, the
+//             ones that also carry K2 past its one-launch body's N limit:
+//             the same instantiation, with the lab's output strides.
+//   float32   the CUDA-core bodies below, all in f32, whose dot products on
+//             the CUDA cores are their limit.
+//
+// Design of the float32 (CUDA-core) bodies. The TPU keeps whole (N, N) f32
+// score tiles in VMEM; at N = 258 one is 266 KB, more than the 227 KB of
+// shared memory a block can have. A block owns one (example, head) and stages what it reads
 // for every row as f32, rows padded to D + 1 floats so that lanes walking rows
 // hit distinct banks. Arrays read with lanes over their rows but indexed along
 // the sequence have a row stride of n | 1, odd for the same reason.
@@ -537,34 +553,50 @@ lab_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
   }
 }
 
-// Dynamic shared memory of kernel `which` at (n, d) and dtype (0 = float32,
-// 1 = bfloat16: the tensor-core split bodies for K12a and K12b).
+// Dynamic shared memory of kernel `which` at (n, d) and dtype (0 = float32:
+// the CUDA-core bodies; 1 = bfloat16: the tensor-core bodies of
+// attention_tc.cuh, K10 and K11 the one-launch ones, K12a and K12b the split).
 size_t smem_bytes(int which, int n, int d, int dtype) {
   const size_t ks = (size_t)d + 1, odd = (size_t)(n | 1), rows = (size_t)n;
-  const bool tc_split = dtype == 1;
+  const bool tensor_cores = dtype == 1;
   switch (which) {
-    case kFwdT: return sizeof(float) * (rows * (ks + d) + kTile * odd + kTile * ks);
-    case kBwdT: return sizeof(float) * (2 * rows * ks + 2 * (size_t)d * odd + 2 * kTile * odd +
-                                        3 * kTile * ks);
+    case kFwdT:
+      if (tensor_cores) return tc::fwd_bytes(n, d);
+      return sizeof(float) * (rows * (ks + d) + kTile * odd + kTile * ks);
+    case kBwdT:
+      if (tensor_cores) return tc::bwd_bytes(n, d);
+      return sizeof(float) * (2 * rows * ks + 2 * (size_t)d * odd + 2 * kTile * odd +
+                              3 * kTile * ks);
     case kDq:
-      if (tc_split) return tc::split_dq_bytes(n, d);
+      if (tensor_cores) return tc::split_dq_bytes(n, d);
       return sizeof(float) * (2 * rows * ks + 2 * kWarps * rows);
     case kDkv:
-      if (tc_split) return tc::split_dkv_bytes(n, d);
+      if (tensor_cores) return tc::split_dkv_bytes(n, d);
       return sizeof(float) * (4 * rows * ks + 3 * rows + 2 * kWarps * rows);
     default: return 0;
   }
 }
 
-// The bf16 K12a and K12b: the split bodies of attention_tc.cuh on the packed
-// qkv, storing dq into (batch, n, W) and [dk | dv] into (batch, n, 2W).
+// The bf16 kernels: the tensor-core bodies of attention_tc.cuh on the packed
+// qkv. K10 and K11 are the one-launch forward and backward with p and ds as
+// hi/lo pairs (kF32P), storing out (batch, n, W) and the packed dqkv (batch,
+// n, 3W); K12a and K12b the split bodies, storing dq into (batch, n, W) and
+// [dk | dv] into (batch, n, 2W).
 template <int DP>
-int launch_split(int which, const tc::bf16* x, const tc::bf16* g, tc::bf16* y, int batch, int n,
-                 int heads, int d, float scale, size_t smem, cudaStream_t stream) {
+int launch_tc(int which, const tc::bf16* x, const tc::bf16* g, tc::bf16* y, int batch, int n,
+              int heads, int d, float scale, size_t smem, cudaStream_t stream) {
   const int w = heads * d, blocks = batch * heads;
   const int threads = 32 * tc::warps_for((n + 15) / 16);
   int rc;
-  if (which == kDq) {
+  if (which == kFwdT) {
+    if ((rc = prepare(tc::attn_fwd_kernel<DP, kPacked, true>, smem))) return rc;
+    tc::attn_fwd_kernel<DP, kPacked, true><<<blocks, threads, smem, stream>>>(
+        x, x + w, x + 2 * w, y, batch, n, heads, d, scale);
+  } else if (which == kBwdT) {
+    if ((rc = prepare(tc::attn_bwd_kernel<DP, kPacked, true>, smem))) return rc;
+    tc::attn_bwd_kernel<DP, kPacked, true><<<blocks, threads, smem, stream>>>(
+        x, x + w, x + 2 * w, g, y, y + w, y + 2 * w, batch, n, heads, d, scale);
+  } else if (which == kDq) {
     if ((rc = prepare(tc::attn_split_dq_kernel<DP, kPacked>, smem))) return rc;
     tc::attn_split_dq_kernel<DP, kPacked><<<blocks, threads, smem, stream>>>(
         x, x + w, x + 2 * w, g, y, Strides{w, (long long)n * w}, batch, n, heads, d, scale);
@@ -586,17 +618,17 @@ int launch(int which, const void* qkv, const void* dout, void* out, int batch, i
   T* y = static_cast<T*>(out);
   const int blocks = batch * heads;
   const size_t smem = smem_bytes(which, n, D, is_bf16 ? 1 : 0);
-  int rc;
-  if (which == kFwdT) {
-    if ((rc = prepare(lab_fwd_t_kernel<T, D>, smem))) return rc;
-    lab_fwd_t_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, y, n, heads, scale);
-  } else if (which == kBwdT) {
-    if ((rc = prepare(lab_bwd_t_kernel<T, D>, smem))) return rc;
-    lab_bwd_t_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
-  } else if (which == kDq || which == kDkv) {
-    if constexpr (is_bf16) {
-      return launch_split<(D + 15) / 16 * 16>(which, x, g, y, batch, n, heads, D, scale, smem,
-                                              stream);
+  if (which < kFwdT || which > kDkv) return (int)cudaErrorInvalidValue;
+  if constexpr (is_bf16) {
+    return launch_tc<(D + 15) / 16 * 16>(which, x, g, y, batch, n, heads, D, scale, smem, stream);
+  } else {
+    int rc;
+    if (which == kFwdT) {
+      if ((rc = prepare(lab_fwd_t_kernel<T, D>, smem))) return rc;
+      lab_fwd_t_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, y, n, heads, scale);
+    } else if (which == kBwdT) {
+      if ((rc = prepare(lab_bwd_t_kernel<T, D>, smem))) return rc;
+      lab_bwd_t_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
     } else if (which == kDq) {
       if ((rc = prepare(lab_dq_kernel<T, D>, smem))) return rc;
       lab_dq_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
@@ -604,10 +636,8 @@ int launch(int which, const void* qkv, const void* dout, void* out, int batch, i
       if ((rc = prepare(lab_dkv_kernel<T, D>, smem))) return rc;
       lab_dkv_kernel<T, D><<<blocks, kThreads, smem, stream>>>(x, g, y, n, heads, scale);
     }
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

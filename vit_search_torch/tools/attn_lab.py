@@ -17,10 +17,16 @@ Four kernels in ``csrc/attn_lab.cu``, each beside its plain version:
   attn_lab.py:146): K2's function split into a dq kernel and a dk/dv kernel
   that share nothing, each recomputing s and p. :func:`call_split` returns
   ``cat([dq, dkv])``, K2's packed cotangent, as the lab's ``call_split``
-  does. In bfloat16 they run on the tensor cores, the split bodies that
-  also carry K2 past its one-launch body's N limit, and round as K2 does
-  (p and ds bfloat16 only as operands of the products); K10, K11 and the
-  float32 K12 run on the CUDA cores in float32.
+  does.
+
+In bfloat16 all four run on the tensor cores. K10 and K11 are K1's and K2's
+one-launch bodies with p and ds kept at float32 precision: each goes into
+its products as a bfloat16 hi/lo pair (``hi = bf16(x)``, ``lo = bf16(x -
+hi)``), both summed in float32, so they keep the lab's float32 function
+(within about 2^-16 of each p and ds, where one bfloat16 operand is 2^-8
+off). K12a and K12b are the split bodies that also carry K2 past its
+one-launch body's N limit, and round as K2 does (p and ds bfloat16 only as
+operands of the products). In float32 all four run on the CUDA cores.
 
 :func:`main` holds K11 against K2 (``bwd_err``) and K10 against K1
 (``fwd_err``) at each of :data:`SHAPES`, then times the model's kernels
