@@ -21,7 +21,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    run the same bodies with p and ds as bf16 hi/lo pairs: their mean error
    against the f32 function must be below K1's and K2's on the card, and
    each lab entry carries ``err_vs_base``, its error against K1's or K2's
-   plain function;
+   plain function. K3/K4's yardstick is ``F.layer_norm`` (their function
+   with a full mask); K3's and K4's registers and spills from the ptxas
+   report go to stderr; at the very end, after the lab, K4's two launches
+   (the rows, then the fold of the per-block partials) are timed apart by
+   ``torch.profiler``;
    Beside the stage shapes, the attention kernels at shapes past the
    supernet's: the 392 px finetune's stage 1 (N = 785, D = 32, where the
    bf16 backward takes the split route), K1/K2 in bf16 and float32 and
@@ -165,6 +169,8 @@ BF16_TOL = (2e-2, 2e-2)
 F32_SUM_TOL = (1e-3, 1e-3)   # gw/gb: the order of the sum differs
 F32_TOL = 1e-4               # float32 attention (CUDA cores): atol and rtol
 STATS_TOL = (1e-4, 1e-4)
+# K3/K4's yardstick: PyTorch's layer norm is the function with a full mask
+LN_LIBRARY_CALL = "F.layer_norm (dense: the full-mask case of the function)"
 # the small net in bf16, card against CPU: on the CPU alone bf16 moves the
 # logits by 0.9% of their largest value from f32, the loss by 1.7e-4 and the
 # gradient norm by 6.6e-4 (relative); the card rounds at other places
@@ -251,6 +257,41 @@ def profile_kernels(fn, top: int = 12):
         cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
         classes[cls] = classes.get(cls, 0.0) + ms
     return sum(r[1] for r in rows), wall_ms, classes, rows[:top]
+
+
+def ptxas_summary(report: str, prefix: str):
+    """``[{kernel, registers, spill_stores, spill_loads}]`` for each kernel of
+    ``nvcc -Xptxas -v`` output named ``<prefix>...kernel``, with its element
+    type and chunks per lane read from the mangled template arguments."""
+    import re
+
+    pattern = re.compile(re.escape(prefix) + r"[a-z_]*kernel(?:I(13__nv_bfloat16|f)"
+                         r"(?:Li(\d+)E)?E)?")
+    out, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = pattern.search(m.group(1))
+            cur = None
+            if k:
+                label = k.group(0).split("I")[0] if k.group(1) else k.group(0)
+                if k.group(1):
+                    label += " bf16" if k.group(1) == "13__nv_bfloat16" else " f32"
+                if k.group(2):
+                    label += f" CPL {k.group(2)}"
+                cur = {"kernel": label, "registers": None, "spill_stores": 0,
+                       "spill_loads": 0}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def compare(name: str, got, want, tol, floor: float = 0.0) -> float:
@@ -415,23 +456,35 @@ def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
     return entries
 
 
-def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool):
-    """K3 (and K4 where ``backward``) against the plain versions at ``batch``."""
+def masked_ln_inputs(stage: int, batch: int):
+    """Seeded bf16 ``(x, mask, weight, bias, g)`` at stage ``stage`` (0-2),
+    a mask per example of one of five widths."""
     import numpy as np
     import torch
-    from vit_search_torch.ops import masked_layer_norm as M
     from vit_search_torch.ops.masking import make_channel_mask
 
     n, c, _, _ = STAGES[stage]
-    b = batch
     gen = torch.Generator(device="cuda").manual_seed(100 + stage)
     widths = np.array([c, c * 7 // 8, c * 3 // 4, c * 11 // 16, c * 5 // 8])
-    counts = torch.as_tensor(np.random.default_rng(stage).choice(widths, b), device="cuda")
+    counts = torch.as_tensor(np.random.default_rng(stage).choice(widths, batch), device="cuda")
     mask = make_channel_mask(counts, c, dtype=torch.bfloat16)
-    x = (torch.randn(b, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16) * mask
-    g = torch.randn(b, n, c, device="cuda", generator=gen).to(torch.bfloat16)
+    x = (torch.randn(batch, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    g = torch.randn(batch, n, c, device="cuda", generator=gen).to(torch.bfloat16)
     w = torch.randn(c, device="cuda", generator=gen)
     bias = torch.randn(c, device="cuda", generator=gen)
+    return x * mask, mask, w, bias, g
+
+
+def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool):
+    """K3 (and K4 where ``backward``) against the plain versions at ``batch``."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.ops import masked_layer_norm as M
+
+    n, c, _, _ = STAGES[stage]
+    b = batch
+    x, mask, w, bias, g = masked_ln_inputs(stage, b)
     shape = {"B": b, "N": n, "C": c, "dtype": "bfloat16"}
 
     y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
@@ -443,12 +496,27 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
     fwd_ms = graph_ms(M.masked_ln_fwd_cuda, (x, mask, w, bias, 1e-6), reps)
     plain_fwd_ms = time_ms(lambda: M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6), reps)
     bfwd = bound(nbytes(x, mask, w, bias, ref_y, ref_stats), 10.0 * x.numel(), PEAK_F32)
+
+    # PyTorch's dense layer norm on the same tensor, as a yardstick only: the
+    # full-mask case of the function
+    lx = x.clone().requires_grad_(backward)
+    lw = w.to(x.dtype).requires_grad_(backward)
+    lb = bias.to(x.dtype).requires_grad_(backward)
+
+    def layer_norm():
+        return F.layer_norm(lx, (c,), lw, lb, 1e-6)
+
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(layer_norm, reps)
     entries = [dict(name="masked_layer_norm_fwd", stage=stage + 1, shape=shape, path=path,
                     max_abs_err=err_fwd,
                     tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                                f"stats: {STATS_TOL}"),
                     ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
-                    bound_by=bfwd[1], library_ms=None)]
+                    bound_by=bfwd[1], library_ms=lib_fwd_ms,
+                    library_call=LN_LIBRARY_CALL + " forward",
+                    plan=M.launch_plan(b * n, n, c, x.element_size(), False, True,
+                                       kernels.num_sms(x), False).__dict__)]
     if not backward:
         return entries
 
@@ -463,14 +531,40 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
     plain_bwd_ms = time_ms(lambda: M.masked_ln_bwd_plain(x, mask, w, stats, g), reps)
     bbwd = bound(nbytes(x, mask, w, ref_stats, g, ref_gx, ref_gw, ref_gb),
                  14.0 * x.numel(), PEAK_F32)
+    lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(layer_norm(), (lx, lw, lb), g), reps)
     entries.append(dict(
         name="masked_layer_norm_bwd", stage=stage + 1, shape=shape, path=path,
         max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
         tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                    f"gw/gb: {F32_SUM_TOL}"),
         ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_bwd_ms, bound_ms=bbwd[0],
-        bound_by=bbwd[1], library_ms=None))
+        bound_by=bbwd[1], library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+        library_call=LN_LIBRARY_CALL + " (forward+backward) - forward",
+        plan=M.launch_plan(b * n, n, c, x.element_size(), False, True, kernels.num_sms(x),
+                           True).__dict__))
     return entries
+
+
+def k4_launches(entries, reps: int) -> None:
+    """K4 is two launches: the rows (gx and a partial of gw, gb per block),
+    then the partials' fold. Device ms of each per call, by kernel name
+    (``torch.profiler``), into K4's train-batch entries as ``rows_ms`` and
+    ``fold_ms``. Run last: once the profiler has run, later host launches
+    are slower."""
+    from vit_search_torch.ops import masked_layer_norm as M
+
+    for e in entries:
+        if e["name"] != "masked_layer_norm_bwd":
+            continue
+        x, mask, w, bias, g = masked_ln_inputs(e["stage"] - 1, e["shape"]["B"])
+        _, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
+        _, _, _, top = profile_kernels(
+            lambda: [M.masked_ln_bwd_cuda(x, mask, w, stats, g) for _ in range(reps)], top=50)
+        split = {("fold" if "fold" in name else "rows"): ms / reps
+                 for name, ms, _ in top if "masked_ln_bwd" in name}
+        e.update(rows_ms=split.get("rows"), fold_ms=split.get("fold"))
+        log(f"K4 stage {e['stage']} B={e['shape']['B']}: rows {split.get('rows', 0):.4f} ms + "
+            f"fold {split.get('fold', 0):.4f} ms per call (profiler); graph {e['ms']:.4f} ms")
 
 
 def check_row_stats(stage: int, reps: int, batch: int, path: str):
@@ -1099,6 +1193,11 @@ def main(argv=None) -> int:
     log(f"built {sorted(reports)} in {build_s:.1f} s")
     report = {"card": card, "kind": kind, "count": count, "build_s": build_s,
               "ptxas": reports}
+    report["masked_ln_registers"] = regs = ptxas_summary(reports.get("masked_ln", ""),
+                                                         "masked_ln_")
+    log("K3/K4 registers (ptxas): " + "; ".join(
+        f"{r['kernel']} {r['registers']} regs, spills {r['spill_stores']}/{r['spill_loads']} B"
+        for r in regs))
 
     entries = []
     for stage in range(len(STAGES)):
@@ -1149,6 +1248,7 @@ def main(argv=None) -> int:
                     f"{b['split']:.3f}, fwd base {a['fwd base']:.3f} T {a['fwd T']:.3f}"
                     for name, (a, b) in ms.items()))
 
+    k4_launches(entries, REPS)
     # each kernel entry reports the launches of the path that gives it its shape
     runs = {"train": (tr, PER_STEP),
             "ops": (ops, PER_OPS_PASS),

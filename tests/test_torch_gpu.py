@@ -396,17 +396,117 @@ def test_masked_ln_kernels_match_plain(cuda, n, c, h, d, shared_mask):
 
 
 @pytest.mark.gpu
-def test_gradient_sums_are_deterministic(cuda):
+@pytest.mark.parametrize("b,n,c", [(64, 65, 512), (512, 17, 1024)], ids=["stage2", "stage3"])
+def test_gradient_sums_are_deterministic(cuda, b, n, c):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(64, 65, 512, device=cuda, generator=gen).to(torch.bfloat16)
-    mask = torch.ones(64, 1, 512, device=cuda, dtype=torch.bfloat16)
-    w, g = torch.randn(512, device=cuda, generator=gen), torch.randn_like(x)
+    x = torch.randn(b, n, c, device=cuda, generator=gen).to(torch.bfloat16)
+    mask = torch.ones(b, 1, c, device=cuda, dtype=torch.bfloat16)
+    w, g = torch.randn(c, device=cuda, generator=gen), torch.randn_like(x)
     _, stats = M.masked_ln_fwd_cuda(x, mask, w, w, 1e-6)
     first = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
     for _ in range(3):
         again = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def _offset_copy(x: torch.Tensor, elements: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``elements`` elements into a
+    fresh buffer (a view at a row offset, where ``elements`` is a row)."""
+    flat = torch.empty(x.numel() + elements, dtype=x.dtype, device=x.device)
+    out = flat[elements:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _ln_inputs(cuda, b, n, c, dtype, shared_mask, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    counts = torch.as_tensor(np.random.default_rng(seed).integers(
+        max(1, c // 4), c + 1, 1 if shared_mask else b), device=cuda)
+    mask = make_channel_mask(counts, c, dtype=dtype)
+    x = (torch.randn(b, n, c, device=cuda, generator=gen) * 2 + 0.5).to(dtype) * mask
+    g = torch.randn(b, n, c, device=cuda, generator=gen).to(dtype)
+    w = torch.randn(c, device=cuda, generator=gen)
+    bias = torch.randn(c, device=cuda, generator=gen)
+    return x, mask, w, bias, g
+
+
+def _ln_against_plain(x, mask, w, bias, g):
+    y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
+    gx, gw, gb = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
+    ref_y, ref_stats = M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6)
+    ref_gx, ref_gw, ref_gb = M.masked_ln_bwd_plain(x, mask, w, ref_stats, g)
+    _close(y, ref_y)
+    _close(stats, ref_stats, 1e-4)
+    _close(gx, ref_gx)
+    _close(gw, ref_gw, 1e-3)
+    _close(gb, ref_gb, 1e-3)
+
+
+# (B, N, C, dtype, shared mask, path): the stage shapes at the train batch,
+# stage 3 at a scoring forward's; fewer rows than SMs; rows not a multiple of
+# the tile; the narrowest and widest C; float32; the batch-1 mask; "tiled" or
+# "general" is the path the launch plan must pick
+LN_CASES = [(512, 257, 256, torch.bfloat16, False, "tiled"),
+            (512, 65, 512, torch.bfloat16, False, "tiled"),
+            (512, 17, 1024, torch.bfloat16, False, "tiled"),
+            (2048, 17, 1024, torch.bfloat16, False, "tiled"),
+            (3, 17, 256, torch.bfloat16, False, "tiled"),
+            (7, 33, 512, torch.bfloat16, False, "tiled"),
+            (5, 3, 4, torch.bfloat16, False, "general"),
+            (9, 11, 12, torch.bfloat16, False, "general"),
+            (6, 13, 100, torch.bfloat16, True, "general"),
+            (6, 13, 100, torch.float32, False, "tiled"),
+            (16, 9, 2048, torch.bfloat16, False, "tiled"),
+            (16, 9, 2048, torch.float32, False, "tiled"),
+            (64, 65, 512, torch.float32, True, "tiled"),
+            (64, 17, 1024, torch.bfloat16, True, "tiled"),
+            (40, 1, 8, torch.bfloat16, False, "tiled")]
+LN_IDS = ["stage1", "stage2", "stage3", "stage3_b2048", "rows_lt_sms", "ragged", "c4",
+          "c12", "c100_batch1", "c100_f32", "c2048", "c2048_f32", "stage2_f32_batch1",
+          "stage3_batch1", "n1"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,dtype,shared_mask,path", LN_CASES, ids=LN_IDS)
+def test_masked_ln_kernels_take_every_shape(cuda, b, n, c, dtype, shared_mask, path):
+    x, mask, w, bias, g = _ln_inputs(cuda, b, n, c, dtype, shared_mask, seed=b + n + c)
+    plan = M.launch_plan(b * n, n, c, x.element_size(), shared_mask, True,
+                         kernels.num_sms(x), True)
+    assert (plan.tile_rows > 0) == (path == "tiled")
+    before = (M.K3.launches, M.K4.launches)
+    _ln_against_plain(x, mask, w, bias, g)
+    assert (M.K3.launches, M.K4.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,offset", [(12, 12), (256, 4), (1024, 1024)],
+                         ids=["c12_odd_row", "c256_8_bytes", "c1024_odd_row"])
+def test_masked_ln_kernels_take_a_view_off_16_bytes(cuda, c, offset):
+    """A contiguous view at an offset: off a 16-byte boundary it takes the
+    general path (C = 12 at an odd row; 4 bf16 elements in), at one it takes
+    the tiled path (an odd row of C = 1024); either way the plain function."""
+    x, mask, w, bias, g = _ln_inputs(cuda, 6, 17, c, torch.bfloat16, False, seed=c)
+    x, g, mask = _offset_copy(x, offset), _offset_copy(g, offset), _offset_copy(mask, offset)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, mask))
+    assert aligned == (c == 1024)
+    _ln_against_plain(x, mask, w, bias, g)
+
+
+@pytest.mark.gpu
+def test_masked_ln_kernels_are_captured_in_a_cuda_graph(cuda):
+    x, mask, w, bias, g = _ln_inputs(cuda, 64, 17, 1024, torch.bfloat16, False, seed=3)
+    y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
+    want = (y, stats) + M.masked_ln_bwd_cuda(x, mask, w, stats, g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gy, gstats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
+        got = (gy, gstats) + M.masked_ln_bwd_cuda(x, mask, w, gstats, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -427,6 +527,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="C % 4"):
         M.masked_ln_fwd_cuda(x, torch.ones(2, 1, 6, device=cuda, dtype=torch.bfloat16),
                              torch.ones(6, device=cuda), torch.zeros(6, device=cuda), 1e-6)
+    x = torch.zeros(2, 5, 2052, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C <= 2048"):
+        M.masked_ln_fwd_cuda(x, torch.ones(2, 1, 2052, device=cuda, dtype=torch.bfloat16),
+                             torch.ones(2052, device=cuda), torch.zeros(2052, device=cuda),
+                             1e-6)
+    x = _offset_copy(torch.zeros(2, 5, 8, device=cuda, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="x must be 8-byte aligned"):
+        M.masked_ln_fwd_cuda(x, torch.ones(2, 1, 8, device=cuda, dtype=torch.bfloat16),
+                             torch.ones(8, device=cuda), torch.zeros(8, device=cuda), 1e-6)
 
 
 @pytest.mark.gpu

@@ -153,8 +153,9 @@ def check_launch(rc: int, what: str) -> None:
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtypes=(torch.bfloat16, torch.float32),
-                      ndim: Optional[int] = None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of an accepted dtype."""
+                      ndim: Optional[int] = None, align: int = 16) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of an accepted dtype
+    whose data starts on an ``align``-byte boundary."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
@@ -163,5 +164,5 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtypes=(torch.bfloat16, torch.
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")

@@ -29,7 +29,7 @@ A CUDA tensor goes through the kernels, or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
-import math
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -77,22 +77,98 @@ def masked_ln_bwd_plain(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tenso
     return gx.to(g.dtype), (gf * z).sum(rows), gf.sum(rows)
 
 
+# The launch plan of K3 and K4 (csrc/masked_ln.cu). A tile is at most
+# TILE_BYTES of x (at most MAX_TILE_ROWS rows, a multiple of the block's 8
+# warps where it holds 8 or more); the ring holds RING_STAGES tiles where the
+# blocks per SM the kernels are compiled for still fit in the SM's shared
+# memory, else fewer; the persistent grid is that many blocks per SM, or one
+# per tile. Two stages measured faster than three for K4 on the H100.
+TILE_BYTES = 16384
+MAX_TILE_ROWS = 256
+RING_STAGES = {False: 3, True: 2}        # K3, K4
+BLOCKS_PER_SM = {False: 4, True: 2}      # K3, K4 (their __launch_bounds__)
+MAX_BLOCK_SMEM = 232448                  # dynamic shared bytes a block may opt into
+SM_SMEM = 233472                         # shared bytes of an SM; a block also holds 1 KB
+BLOCK_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How K3 or K4 is launched. ``tile_rows == 0`` is the general path (a
+    warp per row): for a bf16 row that is not whole 16-byte vectors, or an
+    input not on a 16-byte boundary. ``grid`` is the blocks of the first
+    launch, and K4's count of (2, C) partials."""
+
+    tile_rows: int
+    grid: int
+    stages: int
+    mask_rows: int
+    smem_bytes: int
+
+
+def _round128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def tiled_smem_bytes(backward: bool, c: int, itemsize: int, tile_rows: int, stages: int,
+                     mask_rows: int) -> int:
+    """Shared bytes of a tiled block: ``tiled_smem_bytes`` of csrc/masked_ln.cu,
+    which refuses a launch that disagrees."""
+    row = c * itemsize
+    ring = stages * ((2 if backward else 1) * tile_rows + mask_rows) * row
+    if backward:
+        nchunks = c // (16 // itemsize)
+        phases = 1 if nchunks >= BLOCK_THREADS else BLOCK_THREADS // nchunks
+        ring = max(ring, phases * 2 * c * 4)
+    return (256 + _round128((1 if backward else 2) * c * 4) + _round128(mask_rows * 4)
+            + (_round128(tile_rows * 8) if backward else 0) + _round128(tile_rows * 4) + ring)
+
+
+def launch_plan(rows: int, n: int, c: int, itemsize: int, shared_mask: bool, aligned: bool,
+                sms: int, backward: bool) -> LaunchPlan:
+    """The launch of K3 (K4 where ``backward``) over ``rows`` rows of ``c``
+    channels, ``n`` rows per example; ``aligned``: x, g and the mask start on
+    16-byte boundaries."""
+    if not aligned or (c * itemsize) % 16:
+        groups = -(-rows // 8)
+        if backward:
+            return LaunchPlan(0, max(1, min(groups, 4 * sms)), 0, 0, 2 * c * 4)
+        return LaunchPlan(0, groups, 0, 0, 0)
+    tile_rows = max(1, min(MAX_TILE_ROWS, TILE_BYTES // (c * itemsize), rows))
+    if tile_rows >= 8:
+        tile_rows -= tile_rows % 8
+    mask_rows = 1 if shared_mask else min(tile_rows, (tile_rows - 1) // n + 2)
+    per_sm = BLOCKS_PER_SM[backward]
+    for stages in range(RING_STAGES[backward], 1, -1):
+        smem = tiled_smem_bytes(backward, c, itemsize, tile_rows, stages, mask_rows)
+        if per_sm * (smem + 1024) <= SM_SMEM:
+            break
+    per_sm = max(1, min(per_sm, SM_SMEM // (smem + 1024)))
+    tiles = -(-rows // tile_rows)
+    return LaunchPlan(tile_rows, min(tiles, sms * per_sm), stages, mask_rows, smem)
+
+
 def _lib():
     lib = kernels.library("masked_ln")
     if not getattr(lib, "_vst_typed", False):
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.vst_masked_ln_fwd.argtypes = [p, p, ll, p, p, p, p, i, i, i, f, i, p]
+        lib.vst_masked_ln_fwd.argtypes = [p, p, ll, p, p, p, p, ll, i, i, f, i, i, i, i, i,
+                                          ll, p]
         lib.vst_masked_ln_fwd.restype = i
-        lib.vst_masked_ln_bwd.argtypes = [p, p, ll, p, p, p, p, p, i, p, p, i, i, i, i, p]
+        lib.vst_masked_ln_bwd.argtypes = [p, p, ll, p, p, p, p, p, i, p, p, ll, i, i, i, i,
+                                          i, i, ll, p]
         lib.vst_masked_ln_bwd.restype = i
         lib._vst_typed = True
     return lib
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor) -> int:
-    """Validate a kernel call; returns the mask's batch stride (0 = shared)."""
-    kernels.check_cuda_tensor(x, "x", ndim=3)
-    kernels.check_cuda_tensor(mask, "mask", dtypes=(x.dtype,), ndim=3)
+    """Validate a kernel call; returns the mask's batch stride (0 = shared).
+    The general path loads 4 elements at a time, so x and the mask must
+    start on a 4-element boundary."""
+    align = 4 * x.element_size()
+    kernels.check_cuda_tensor(x, "x", ndim=3, align=align)
+    kernels.check_cuda_tensor(mask, "mask", dtypes=(x.dtype,), ndim=3, align=align)
     b, _, c = x.shape
     if c % 4 or c > MAX_KERNEL_CHANNELS:
         raise ValueError(f"masked-LN kernel takes C % 4 == 0 and C <= "
@@ -110,17 +186,27 @@ def _params(t: torch.Tensor, c: int, name: str) -> torch.Tensor:
     return t
 
 
+def _plan(x: torch.Tensor, mask: torch.Tensor, backward: bool, *more: torch.Tensor
+          ) -> LaunchPlan:
+    b, n, c = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, mask, *more))
+    return launch_plan(b * n, n, c, x.element_size(), mask.shape[0] == 1, aligned,
+                       kernels.num_sms(x), backward)
+
+
 def masked_ln_fwd_cuda(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3."""
     bstride = _check(x, mask)
     b, n, c = x.shape
     w, bb = _params(weight, c, "weight"), _params(bias, c, "bias")
+    plan = _plan(x, mask, False)
     y = torch.empty_like(x)
     stats = torch.empty((b, n, 2), dtype=torch.float32, device=x.device)
     rc = _lib().vst_masked_ln_fwd(x.data_ptr(), mask.data_ptr(), bstride, w.data_ptr(),
                                   bb.data_ptr(), y.data_ptr(), stats.data_ptr(), b * n, n,
-                                  c, eps, kernels.DTYPE_CODES[x.dtype],
+                                  c, eps, kernels.DTYPE_CODES[x.dtype], plan.tile_rows,
+                                  plan.grid, plan.stages, plan.mask_rows, plan.smem_bytes,
                                   kernels.stream_ptr(x))
     kernels.check_launch(rc, "masked layer norm forward (K3)")
     K3.launches += 1
@@ -130,24 +216,25 @@ def masked_ln_fwd_cuda(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor
 def masked_ln_bwd_cuda(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
                        stats: torch.Tensor, g: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K4 (per-block partial sums, then their ordered reduction)."""
+    """Launch K4: gx and a (2, C) partial of gw, gb per block, then the
+    partials' fold in a fixed order."""
     bstride = _check(x, mask)
     b, n, c = x.shape
-    kernels.check_cuda_tensor(g, "g", dtypes=(x.dtype,), ndim=3)
-    kernels.check_cuda_tensor(stats, "stats", dtypes=(torch.float32,), ndim=3)
+    kernels.check_cuda_tensor(g, "g", dtypes=(x.dtype,), ndim=3, align=4 * x.element_size())
+    kernels.check_cuda_tensor(stats, "stats", dtypes=(torch.float32,), ndim=3, align=8)
     if g.shape != x.shape or stats.shape != (b, n, 2):
         raise ValueError("g must match x and stats must be (B, N, 2)")
     w = _params(weight, c, "weight")
-    rows = b * n
-    nparts = max(1, min(math.ceil(rows / 8), 4 * kernels.num_sms(x)))
+    plan = _plan(x, mask, True, g)
     gx = torch.empty_like(x)
-    partial = torch.empty((nparts, 2, c), dtype=torch.float32, device=x.device)
+    partial = torch.empty((plan.grid, 2, c), dtype=torch.float32, device=x.device)
     gw = torch.empty((c,), dtype=torch.float32, device=x.device)
     gb = torch.empty((c,), dtype=torch.float32, device=x.device)
     rc = _lib().vst_masked_ln_bwd(x.data_ptr(), mask.data_ptr(), bstride, w.data_ptr(),
                                   stats.data_ptr(), g.data_ptr(), gx.data_ptr(),
-                                  partial.data_ptr(), nparts, gw.data_ptr(), gb.data_ptr(),
-                                  rows, n, c, kernels.DTYPE_CODES[x.dtype],
+                                  partial.data_ptr(), plan.grid, gw.data_ptr(), gb.data_ptr(),
+                                  b * n, n, c, kernels.DTYPE_CODES[x.dtype], plan.tile_rows,
+                                  plan.stages, plan.mask_rows, plan.smem_bytes,
                                   kernels.stream_ptr(x))
     kernels.check_launch(rc, "masked layer norm backward (K4)")
     K4.launches += 1
