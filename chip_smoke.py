@@ -29,13 +29,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    Beside the stage shapes, the attention kernels at shapes past the
    supernet's: the 392 px finetune's stage 1 (N = 785, D = 32, where the
    bf16 backward takes the split route), K1/K2 in bf16 and float32 and
-   K6-K9 in bf16, and K1/K2 at a head dim of 24;
+   K6-K9 in bf16, and K1/K2 at a head dim of 24; then K1/K2 at the searched
+   Tiny net's stages (widest heads, B = 512) and at the 392 px finetune's
+   three stages (B = 64);
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32
    (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
    route (``fused``: K3/K4; ``stats``: K5), then in bfloat16 (the
    tensor-core bodies) on the fused route: loss, gradient norm and logits
-   within ``REF_NET_BF16_TOL``;
+   within ``REF_NET_BF16_TOL``; then the same net trained densely, as a
+   searched net, with random erasing, gradient clipping and the EMA on, the
+   draws made once on the host for both devices, in float32 and bfloat16:
+   loss, gradient norm, logits and the EMA within the same tolerances;
 5. the op-level API at each stage shape, forward and backward through
    autograd: ``fused_attention_packed`` and ``fused_attention`` (K6/K7),
    ``fused_attention_qkv_t`` (K8/K9); outputs of the expected shapes, the
@@ -49,6 +54,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 compute, AdamW; every loss finite, and each kernel's launch count
    moves by exactly its per-step count; one more step under
    ``torch.profiler``, its device time by kernel class;
+   searched (``searched_net/tiny.sh``): the dense ViT-ResNAS-Tiny at 224 px,
+   batch 512, token mixup, drop_path 0.2, random erasing 0.25 (pixel), EMA
+   0.99996, AdamW, bf16: every loss finite, the EMA finite and not the
+   parameters, K1/K2 16 launches per step and K3-K5 none (a dense net runs
+   plain layer norms);
+   finetune (``finetune/medium_img-size@392.sh``): ViT-ResNAS-Medium trains
+   two steps at 224 px with the EMA, is saved by ``CheckpointManager`` and
+   read back by ``restore_raw``; ``load_finetune`` resizes the EMA's
+   position tables on the card into the 392 px net (within 1e-5 of the
+   same surgery on the CPU, the cls rows bit for bit), which trains at
+   batch 64, patch_len 7, drop_path 0.75, lr 5e-6, weight decay 1e-8,
+   erasing and EMA on: K1/K2 20 launches per step, and the profiled step's
+   backward launches by name show K2's split route at stage 1 (N = 785);
 7. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
    the default: K1 and K3): the same supernet scores an evolutionary
    population (20 random candidates, then one generation of 8 mutations and
@@ -64,11 +82,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exactly as often as the run calls it, and the lab's kernels against their
    plain versions at the lab's shapes;
 9. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
-   reports (``train``; ``ops``; ``shapes``; ``lab``; ``search``, the stats
-   route; ``search_fused``) and its launches per pass of that path (a train
-   step, one call of each op-level entry point, one call at one of the
-   extra shapes, one shape of the lab, or a scoring forward), then the last
-   line ``{"ok": true, "device": {...}}``.
+   reports (``train``; ``searched``; ``finetune``; ``ops``; ``shapes``;
+   ``lab``; ``search``, the stats route; ``search_fused``) and its launches
+   per pass of that path (a train step, one call of each op-level entry
+   point, one call at one of the extra shapes, one shape of the lab, or a
+   scoring forward), then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -148,6 +166,23 @@ LAB_CALLS = 2 + 3 * LAB_ITERS
 PER_LAB_SHAPE = per_pass(attention_qkv_fwd=LAB_CALLS, attention_qkv_bwd=2 * LAB_CALLS,
                          lab_fwd_t=LAB_CALLS, lab_bwd_t=LAB_CALLS, lab_split_dq=LAB_CALLS,
                          lab_split_dkv=LAB_CALLS)
+# the searched and finetune paths: searched_net/tiny.sh (ViT-ResNAS-Tiny,
+# dense, 16 attention layers) at the train phase's batch (the script's 1024
+# halved, as the supernet's), and finetune/medium_img-size@392.sh
+# (ViT-ResNAS-Medium, 20 attention layers) at 64 images (the script's 256 is
+# per host of four cards), both with random erasing and the EMA on
+SEARCHED_MODEL = "flexible_vit_sr_patch14_224_patch_output"
+FINETUNE_MODEL = "flexible_vit_sr_patch14_392_patch_output"
+FINETUNE_BATCH = 64
+EMA_DECAY = 0.99996
+ERASING = {"erasing_prob": 0.25, "erasing_mode": "pixel"}
+PER_SEARCHED_STEP = per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16)
+PER_FINETUNE_STEP = per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20)
+# (label, batch, N, heads, head_dim): the searched Tiny net's stages at their
+# widest heads; the finetune's are FINETUNE_392
+SEARCHED_SHAPES = (("searched stage 1", BATCH, 257, 4, 32),
+                   ("searched stage 2", BATCH, 65, 10, 48),
+                   ("searched stage 3", BATCH, 17, 10, 64))
 # search: --val-bs and --arch-batch of cli/evo_search.py, the Tiny budget of
 # scripts/vit-sr-nas/evolutionary_search/tiny.sh; population cut to 20 + 16
 VAL_BATCH, ARCH_BATCH, VAL_BATCHES, LAST_VALID = 256, 8, 3, 128
@@ -716,6 +751,17 @@ def check_extra_shapes(reps: int):
     return entries + check_attention(label, reps, b, "shapes", backward=True, nhd=(n, h, d))
 
 
+def check_dense_shapes(reps: int):
+    """K1/K2 at the shapes the searched and finetune paths give them: the
+    searched Tiny net's stages at their widest heads (B 512) and the 392 px
+    finetune's three stages (B 64; stage 1 on the split route), bf16."""
+    entries = []
+    for path, shapes in (("searched", SEARCHED_SHAPES), ("finetune", FINETUNE_392)):
+        for label, b, n, h, d in shapes:
+            entries += check_attention(label, reps, b, path, backward=True, nhd=(n, h, d))
+    return entries
+
+
 def check_kernels(stage: int, reps: int):
     """Every kernel at the shapes each main path gives it: the train step's
     batch (K1-K4; K5 at the same batch, the training step on the stats
@@ -732,17 +778,23 @@ def check_kernels(stage: int, reps: int):
             + check_row_stats(stage, reps, SEARCH_BATCH, "search"))
 
 
-def check_reference_net(ln_route: str, dtype=None):
+def check_reference_net(ln_route: str, dtype=None, dense: bool = False):
     """A small conv-stem supernet, float32 (or ``dtype``): card (kernels) vs
     CPU (plain). In bfloat16 the loss, gradient norm and logits are held to
     ``REF_NET_BF16_TOL``; AdamW's first step moves each parameter by about lr
-    whatever its gradient, so only the float32 run holds the parameters."""
+    whatever its gradient, so only the float32 run holds the parameters.
+    ``dense`` trains the same net as a searched net (no masks, so plain layer
+    norms) with random erasing, gradient clipping and the EMA on, the erasing
+    boxes and noise drawn once on the host for both devices; the EMA (decay
+    ``EMA_DECAY``, which damps the step's difference) is held to the
+    parameters' float32 tolerance in both dtypes."""
     import numpy as np
     import torch
+    from vit_search_torch.data import sample_erasing_draws
+    from vit_search_torch.data.mixup import sample_token_mix_draws
     from vit_search_torch.models import SupernetSchedules, build_arch_masks, create_model
     from vit_search_torch.train import (OptimConfig, StepDraws, TrainConfig, lr_schedule,
                                         make_optimizer, make_train_step)
-    from vit_search_torch.data.mixup import sample_token_mix_draws
 
     dtype = dtype or torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -763,35 +815,46 @@ def check_reference_net(ln_route: str, dtype=None):
              np.array([256, 192]),
              {"attn": np.array([256, 128]), "mlp": np.array([512, 256]), "layer": None},
              None]
-    batch, img = 8, 112
+    batch, img, clip = 8, 112, 1e-2
     rng = np.random.default_rng(0)
     images = torch.as_tensor(rng.integers(0, 256, (batch, img, img, 3), dtype=np.uint8))
     labels = torch.as_tensor(rng.integers(0, 10, batch))
     sched = SupernetSchedules(net, space, example_per_arch=2, num_warmup_epochs=0)
-    counts = sched.sample_packed(rng, batch)
+    counts = None if dense else sched.sample_packed(rng, batch)
     draws = StepDraws(mix=sample_token_mix_draws(rng, batch, 2),
                       drop_keeps=[torch.as_tensor(rng.random(batch) < 0.9) for _ in range(8)])
+    cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2)
+    ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch)
+    if dense:
+        cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2, ema_decay=EMA_DECAY,
+                          erasing_prob=0.5, erasing_mode="pixel", erasing_count=2)
+        ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch,
+                           clip_grad=clip)
+        draws.erasing = sample_erasing_draws(rng, batch, img, img, 0.5, 2)
+        draws.erasing.fill = torch.randn(2, batch, img, img, 3,
+                                         generator=torch.Generator().manual_seed(2))
     results = {}
     for dev in ("cpu", "cuda"):
-        model = create_model("flexible_vit_sr_patch14_224_patch_output_supernet",
+        model = create_model(SEARCHED_MODEL if dense else
+                             "flexible_vit_sr_patch14_224_patch_output_supernet",
                              network_def=net, img_size=img, drop_path_rate=0.1,
                              gelu="tanh", device=dev, seed=0, ln_route=ln_route, dtype=dtype)
-        masks = build_arch_masks(sched.unpack(counts, batch), net, batch, device=dev)
+        masks = None if dense else build_arch_masks(sched.unpack(counts, batch), net, batch,
+                                                    device=dev)
         x = torch.randn(batch, img, img, 3, generator=torch.Generator().manual_seed(1)).to(dev)
         cls, patch = model(x, masks, patch_output_type="seq",
                            drop_keeps=[k.to(dev) for k in draws.drop_keeps])
-        ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch)
-        step = make_train_step(model, make_optimizer(ocfg, model),
-                               TrainConfig(num_classes=10, mixup_mode="token", patch_len=2),
-                               schedule=lr_schedule(ocfg), counts_unpack=sched.unpack,
-                               device=dev)
-        dev_draws = StepDraws(mix=draws.mix,
-                              drop_keeps=[k.to(dev) for k in draws.drop_keeps])
+        step = make_train_step(model, make_optimizer(ocfg, model), cfg,
+                               schedule=lr_schedule(ocfg),
+                               counts_unpack=None if dense else sched.unpack, device=dev)
+        dev_draws = StepDraws(mix=draws.mix, drop_keeps=[k.to(dev) for k in draws.drop_keeps],
+                              erasing=draws.erasing)
         metrics = step(images.to(dev), labels.to(dev), counts, draws=dev_draws)
+        ema = {k: v.detach().cpu() for k, v in (step.state.ema_params or {}).items()}
         results[dev] = (cls.detach().cpu(), patch.detach().cpu(), float(metrics["loss"]),
                         float(metrics["grad_norm"]),
-                        {k: v.detach().cpu() for k, v in model.state_dict().items()})
-    (c0, p0, l0, g0, sd0), (c1, p1, l1, g1, sd1) = results["cpu"], results["cuda"]
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}, ema)
+    (c0, p0, l0, g0, sd0, ema0), (c1, p1, l1, g1, sd1, ema1) = results["cpu"], results["cuda"]
     bf16 = dtype == torch.bfloat16
     tol = REF_NET_BF16_TOL if bf16 else {"logits": (1e-3, 1e-3), "loss": 1e-4,
                                          "grad_norm": 1e-4}
@@ -801,6 +864,13 @@ def check_reference_net(ln_route: str, dtype=None):
         if not math.isclose(a, b_, rel_tol=tol[name]):
             raise AssertionError(f"ref net {name}: card {a} vs CPU {b_}")
         errs[name] = abs(a - b_)
+    if dense:
+        if not (g0 > clip and g1 > clip):
+            raise AssertionError(f"ref net: gradient norms {g0}, {g1} not clipped at {clip}")
+        if not draws.erasing.apply.any():
+            raise AssertionError("ref net: no image erased")
+        errs["ema_params"] = max(compare(f"ref net EMA {k}", ema1[k], ema0[k], (1e-4, 1e-4),
+                                         floor=1e-6) for k in ema0)
     if bf16:
         return errs
     # AdamW's first step moves each parameter by about lr whatever the
@@ -946,6 +1016,59 @@ def check_launches(launches: dict, per: dict, passes: int, what: str) -> None:
                                  f"expected {count} per pass")
 
 
+def synthetic_batch(batch: int, img: int, seed: int):
+    """Random uint8 NHWC images and labels on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randint(0, 256, (batch, img, img, 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    return images, torch.randint(0, 1000, (batch,), device="cuda", generator=gen)
+
+
+def run_steps(what: str, step, images, labels, counts, steps: int, warmup: int,
+              per_step: dict, top: int = 12):
+    """``warmup`` untimed steps, then ``steps`` timed ones (the launches of
+    this window counted, exactly ``per_step`` each), then one more step
+    under the profiler. ``counts()`` gives each step's keep counts."""
+    import torch
+    from vit_search_torch.ops import kernels
+
+    batch = images.shape[0]
+    t0 = time.perf_counter()
+    warm = [step(images, labels, counts()) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = [step(images, labels, counts()) for _ in range(steps)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [float(m["loss"]) for m in warm + metrics]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: non-finite loss: {losses}")
+    check_launches(launches, per_step, steps, f"{what} steps")
+    # one more step under the profiler, outside the counted window
+    busy_ms, wall_ms, classes, rows = profile_kernels(
+        lambda: step(images, labels, counts()), top=top)
+    by_class = ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(classes.items(),
+                                                            key=lambda kv: -kv[1]))
+    log(f"{what}: profiled step {busy_ms:.1f} ms device-busy of "
+        f"{wall_ms:.1f} ms ({by_class})")
+    return {"steps": steps, "warmup_steps": warmup, "batch": batch,
+            "imgs_per_s": batch * steps / elapsed, "step_ms": 1e3 * elapsed / steps,
+            "warmup_s": warm_s, "max_memory_allocated_bytes": peak,
+            "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in warm + metrics],
+            "launches": launches,
+            "profiled_step": {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+                              "by_class_ms": classes, "top_kernels": rows}}
+
+
 def train(steps: int, warmup: int):
     import gc
 
@@ -953,7 +1076,6 @@ def train(steps: int, warmup: int):
     import torch
     from vit_search_torch.arch import presets, spaces
     from vit_search_torch.models import SupernetSchedules, create_model
-    from vit_search_torch.ops import kernels
     from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
                                         make_optimizer, make_train_step)
 
@@ -972,44 +1094,168 @@ def train(steps: int, warmup: int):
     step = make_train_step(model, make_optimizer(ocfg, model),
                            TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4),
                            schedule=lr_schedule(ocfg), counts_unpack=sched.unpack, seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    images = torch.randint(0, 256, (BATCH, 224, 224, 3), dtype=torch.uint8, device="cuda",
-                           generator=gen)
-    labels = torch.randint(0, 1000, (BATCH,), device="cuda", generator=gen)
+    images, labels = synthetic_batch(BATCH, 224, 0)
     rng = np.random.default_rng(0)
+    return run_steps("train", step, images, labels, lambda: sched.sample_packed(rng, BATCH),
+                     steps, warmup, PER_STEP)
 
-    t0 = time.perf_counter()
-    warm = [step(images, labels, sched.sample_packed(rng, BATCH)) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
 
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    metrics = [step(images, labels, sched.sample_packed(rng, BATCH)) for _ in range(steps)]
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
+def check_ema(what: str, step) -> None:
+    """The step's EMA is finite and not the parameters."""
+    import torch
 
-    losses = [float(m["loss"]) for m in warm + metrics]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    check_launches(launches, PER_STEP, steps, "steps")
-    # one more step under the profiler, outside the counted window
-    busy_ms, wall_ms, classes, top = profile_kernels(
-        lambda: step(images, labels, sched.sample_packed(rng, BATCH)))
-    by_class = ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(classes.items(),
-                                                            key=lambda kv: -kv[1]))
-    log(f"train: profiled step {busy_ms:.1f} ms device-busy of "
-        f"{wall_ms:.1f} ms ({by_class})")
-    return {"steps": steps, "warmup_steps": warmup, "batch": BATCH,
-            "imgs_per_s": BATCH * steps / elapsed, "step_ms": 1e3 * elapsed / steps,
-            "warmup_s": warm_s, "max_memory_allocated_bytes": peak,
-            "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in warm + metrics],
-            "launches": launches,
-            "profiled_step": {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
-                              "by_class_ms": classes, "top_kernels": top}}
+    ema, params = step.state.ema_params, dict(step.model.named_parameters())
+    if not all(torch.isfinite(t).all() for t in ema.values()):
+        raise AssertionError(f"{what}: non-finite EMA")
+    if all(torch.equal(t, params[k]) for k, t in ema.items()):
+        raise AssertionError(f"{what}: the EMA equals the parameters")
+
+
+def searched(steps: int, warmup: int):
+    """searched_net/tiny.sh: the dense ViT-ResNAS-Tiny at 224 px, batch
+    ``BATCH``, token mixup (patch_len 4), drop_path 0.2, random erasing,
+    EMA, AdamW, tanh GELU, bf16."""
+    import gc
+
+    import torch
+    from vit_search_torch.arch import network_def as nd
+    from vit_search_torch.arch import presets
+    from vit_search_torch.models import create_model
+    from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
+                                        make_optimizer, make_train_step)
+
+    gc.collect()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    net = presets.VIT_RESNAS_TINY
+    if nd.existing_depth(net) != PER_SEARCHED_STEP["attention_qkv_fwd"]:
+        raise AssertionError("PER_SEARCHED_STEP does not count the net's attention layers")
+    model = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
+                         drop_path_rate=0.2, gelu="tanh", seed=0)
+    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=300, steps_per_epoch=1000,
+                       global_batch_size=BATCH)
+    cfg = TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4,
+                      ema_decay=EMA_DECAY, **ERASING)
+    step = make_train_step(model, make_optimizer(ocfg, model), cfg,
+                           schedule=lr_schedule(ocfg), seed=0)
+    images, labels = synthetic_batch(BATCH, 224, 0)
+    out = run_steps("searched", step, images, labels, lambda: None, steps, warmup,
+                    PER_SEARCHED_STEP)
+    check_ema("searched", step)
+    return out
+
+
+def finetune(steps: int, warmup: int):
+    """finetune/medium_img-size@392.sh: ViT-ResNAS-Medium trains two steps
+    at 224 px with the EMA, is saved through ``CheckpointManager`` and read
+    back by ``restore_raw``; ``load_finetune`` resizes its EMA's position
+    tables on the card into the 392 px net (held to the same surgery on the
+    CPU within 1e-5, the cls rows bit for bit), which then trains at batch
+    ``FINETUNE_BATCH``: patch_len 7, drop_path 0.75, lr 5e-6, weight decay
+    1e-8, random erasing and the EMA on. The profiled step's backward
+    launches by name show K2's route at each stage: at 392 px stage 1 (N =
+    785, D = 32) the split route, two launches per call."""
+    import gc
+    import tempfile
+
+    import torch
+    from vit_search_torch.arch import network_def as nd
+    from vit_search_torch.arch import presets
+    from vit_search_torch.models import create_model, interpolate_pos_embeds
+    from vit_search_torch.ops import attention as A
+    from vit_search_torch.train import (CheckpointManager, OptimConfig, TrainConfig,
+                                        load_finetune, lr_schedule, make_optimizer,
+                                        make_train_step, restore_raw)
+
+    gc.collect()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    net = presets.VIT_RESNAS_MEDIUM
+    if nd.existing_depth(net) != PER_FINETUNE_STEP["attention_qkv_fwd"]:
+        raise AssertionError("PER_FINETUNE_STEP does not count the net's attention layers")
+
+    # the searched Medium net: two steps at 224 px, then its checkpoint
+    src = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
+                       drop_path_rate=0.3, gelu="tanh", seed=0)
+    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=0, epochs=300,
+                       global_batch_size=FINETUNE_BATCH)
+    src_step = make_train_step(src, make_optimizer(ocfg, src),
+                               TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4,
+                                           ema_decay=EMA_DECAY, **ERASING),
+                               schedule=lr_schedule(ocfg), seed=0)
+    images, labels = synthetic_batch(FINETUNE_BATCH, 224, 2)
+    src_losses = [float(src_step(images, labels)["loss"]) for _ in range(2)]
+    if not all(math.isfinite(v) for v in src_losses):
+        raise AssertionError(f"finetune source: non-finite loss {src_losses}")
+    check_ema("finetune source", src_step)
+    del images, labels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager(tmp).save("best_ema", src_step, {"epoch": 0})
+        path = os.path.join(tmp, "best_ema")
+        raw = restore_raw(path)
+        del src_step, src
+        gc.collect()
+        model = create_model(FINETUNE_MODEL, network_def=net, dtype=torch.bfloat16,
+                             drop_path_rate=0.75, gelu="tanh", seed=1)
+        load_finetune(model, path)
+    card = dict(model.named_parameters())
+    want = interpolate_pos_embeds(raw["ema_params"], {k: v.detach().cpu()
+                                                      for k, v in card.items()},
+                                  model.num_tokens)
+    tables = {}
+    for k, v in want.items():
+        got = card[k].detach().cpu()
+        if k.endswith("pos_embed"):
+            tables[k] = [list(raw["ema_params"][k].shape), list(v.shape),
+                         float((got - v).abs().max())]
+            if tables[k][2] > 1e-5:
+                raise AssertionError(f"finetune {k}: card and CPU surgery differ by "
+                                     f"{tables[k][2]:.3e}")
+        elif not torch.equal(got, v):
+            raise AssertionError(f"finetune {k}: not the checkpoint's EMA")
+    if not torch.equal(card["pos_embed"][:, :1].detach().cpu(),
+                       raw["ema_params"]["pos_embed"][:, :1]):
+        raise AssertionError("finetune: the cls row of pos_embed moved")
+    del raw, want
+
+    ft_ocfg = OptimConfig(base_lr=5e-6, min_lr=5e-6, weight_decay=1e-8, warmup_epochs=5,
+                          epochs=30, steps_per_epoch=1000, global_batch_size=512)
+    cfg = TrainConfig(num_classes=1000, mixup_mode="token", patch_len=7,
+                      ema_decay=EMA_DECAY, **ERASING)
+    step = make_train_step(model, make_optimizer(ft_ocfg, model), cfg,
+                           schedule=lr_schedule(ft_ocfg), seed=0)
+    images, labels = synthetic_batch(FINETUNE_BATCH, 392, 3)
+    out = run_steps("finetune", step, images, labels, lambda: None, steps, warmup,
+                    PER_FINETUNE_STEP, top=1000)
+    check_ema("finetune", step)
+
+    # K2's route at each stage, from the net and from the profiled step's
+    # launches by kernel name
+    grid, stages, d_of = 392 // 14, [], {}
+    for block in net[1:-1]:
+        if nd.block_type(block) == nd.TRANSFORMER:
+            tdef = nd.transformer_def(block)
+            n = grid * grid + 1
+            if not stages or stages[-1]["N"] != n:
+                stages.append({"N": n, "D": tdef.head_dim, "blocks": 0})
+            stages[-1]["blocks"] += 1
+        else:
+            grid //= 2
+    for st in stages:
+        st["route"] = "split" if A.backward_is_split(st["N"], st["D"]) else "one launch"
+    calls = {name: sum(c for key, _, c in out["profiled_step"]["top_kernels"] if name in key)
+             for name in ("attn_split_dq_kernel", "attn_split_dkv_kernel", "attn_bwd_kernel")}
+    split_blocks = sum(st["blocks"] for st in stages if st["route"] == "split")
+    if stages[0]["route"] != "split" or not (
+            calls["attn_split_dq_kernel"] == calls["attn_split_dkv_kernel"] == split_blocks
+            and calls["attn_bwd_kernel"] + split_blocks == sum(st["blocks"] for st in stages)):
+        raise AssertionError(f"finetune: K2's routes {stages} and its launches {calls} "
+                             f"disagree, or stage 1 is not on the split route")
+    out["profiled_step"]["top_kernels"] = out["profiled_step"]["top_kernels"][:12]
+    out.update(k2_routes=stages, k2_launches_by_name=calls, pos_embed_tables=tables,
+               source_losses=src_losses)
+    return out
 
 
 def sub_val_loader():
@@ -1207,12 +1453,20 @@ def main(argv=None) -> int:
     entries += check_extra_shapes(REPS)
     log("the attention kernels agree with their plain versions at the 392 px finetune's "
         "stage 1 and at head dim 24")
+    entries += check_dense_shapes(REPS)
+    log("K1/K2 agree with their plain versions at the searched Tiny net's and the 392 px "
+        "finetune's stage shapes")
     for ln_route in ("fused", "stats"):
         report[f"reference_net_{ln_route}"] = errs = check_reference_net(ln_route)
         log(f"reference net, ln_route={ln_route}: card vs CPU {errs}")
     report["reference_net_bf16"] = errs = check_reference_net("fused", torch.bfloat16)
     print(f"reference net, bfloat16, ln_route=fused: card vs CPU {json.dumps(errs)} "
           f"(tolerance {json.dumps(REF_NET_BF16_TOL)})", flush=True)
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        report[f"reference_net_dense_{name}"] = errs = check_reference_net(
+            "fused", dtype, dense=True)
+        print(f"reference net, dense, erasing + clipping + EMA, {name}: card vs CPU "
+              f"{json.dumps(errs)}", flush=True)
 
     report["ops"] = ops = ops_path()
     log(f"op-level API: {ops['passes']} passes, launches K6/K7 "
@@ -1229,6 +1483,21 @@ def main(argv=None) -> int:
     print(f"train: {tr['imgs_per_s']:.1f} imgs/s ({tr['step_ms']:.1f} ms/step, batch "
           f"{BATCH}) peak memory {tr['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
           f"on {card}", flush=True)
+    t0 = time.perf_counter()
+    report["searched"] = se = searched(STEPS, WARMUP)
+    se["seconds"] = time.perf_counter() - t0
+    print(f"searched: {se['imgs_per_s']:.1f} imgs/s ({se['step_ms']:.1f} ms/step, batch "
+          f"{se['batch']}) peak memory {se['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+          f"on {card}", flush=True)
+    t0 = time.perf_counter()
+    report["finetune"] = ft = finetune(STEPS, WARMUP)
+    ft["seconds"] = time.perf_counter() - t0
+    routes = ", ".join(f"stage {i + 1} (N {st['N']}, D {st['D']}) {st['route']}"
+                       for i, st in enumerate(ft["k2_routes"]))
+    print(f"finetune 392px: {ft['imgs_per_s']:.1f} imgs/s ({ft['step_ms']:.1f} ms/step, "
+          f"batch {ft['batch']}) peak memory {ft['max_memory_allocated_bytes'] / 2**30:.2f} "
+          f"GiB on {card}; K2 {routes}", flush=True)
+    log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s")
     # the search on each masked-LN route, one model on the card at a time;
     # one chunk's logits must agree across the routes
     searches, logits = {}, {}
@@ -1251,6 +1520,8 @@ def main(argv=None) -> int:
     k4_launches(entries, REPS)
     # each kernel entry reports the launches of the path that gives it its shape
     runs = {"train": (tr, PER_STEP),
+            "searched": (se, PER_SEARCHED_STEP),
+            "finetune": (ft, PER_FINETUNE_STEP),
             "ops": (ops, PER_OPS_PASS),
             "shapes": (shapes, PER_SHAPES_CALL),
             "lab": (lab, PER_LAB_SHAPE),

@@ -801,3 +801,77 @@ def test_lab_main_runs_on_the_card(cuda, capsys):
         assert r["bwd_err"] <= 2e-2 * r["bwd_ref_max"] and r["fwd_err"] <= 2e-2 * r["fwd_ref_max"]
     for r in split:
         assert r["err"] <= 2e-2 * r["ref_max"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_step_with_erasing_clipping_and_ema_matches_the_cpu(cuda, dtype):
+    """The small net trained as a searched net (no masks), one step with
+    random erasing, gradient clipping and the EMA, on the card against the
+    CPU with the same draws, at chip_smoke's tolerances."""
+    import chip_smoke
+
+    errs = chip_smoke.check_reference_net("fused", dtype, dense=True)
+    assert set(errs) >= {"loss", "grad_norm", "cls_logits", "patch_logits", "ema_params"}
+
+
+@pytest.mark.gpu
+def test_finetune_392_step_takes_the_split_route(cuda):
+    """One bf16 step of ViT-ResNAS-Medium at 392 px, batch 2: K1/K2 launch
+    once per attention layer (20), and stage 1 (N = 785, D = 32, 7 blocks)
+    runs K2's split route, a dq and a dk/dv launch per call, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_search_torch.arch import presets
+    from vit_search_torch.models import create_model
+    from vit_search_torch.train import (OptimConfig, TrainConfig, make_optimizer,
+                                        make_train_step)
+
+    model = create_model("flexible_vit_sr_patch14_392_patch_output",
+                         network_def=presets.VIT_RESNAS_MEDIUM, dtype=torch.bfloat16,
+                         drop_path_rate=0.75, gelu="tanh")
+    step = make_train_step(model, make_optimizer(OptimConfig(base_lr=5e-6), model),
+                           TrainConfig(mixup_mode="token", patch_len=7, ema_decay=0.99996,
+                                       erasing_prob=0.25))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.randint(0, 256, (2, 392, 392, 3), dtype=torch.uint8, device=cuda,
+                           generator=gen)
+    labels = torch.randint(0, 1000, (2,), device=cuda, generator=gen)
+    assert A.backward_is_split(785, 32) and not A.backward_is_split(197, 48)
+    before = (A.K1.launches, A.K2.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        metrics = step(images, labels)
+        torch.cuda.synchronize()
+    assert (A.K1.launches - before[0], A.K2.launches - before[1]) == (20, 20)
+    assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+    calls = {k: sum(e.count for e in prof.key_averages() if k in e.key)
+             for k in ("attn_split_dq_kernel", "attn_split_dkv_kernel", "attn_bwd_kernel")}
+    assert calls == {"attn_split_dq_kernel": 7, "attn_split_dkv_kernel": 7,
+                     "attn_bwd_kernel": 13}, calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst", [(16, 28), (28, 16)], ids=["grow", "shrink"])
+def test_pos_embed_interpolation_of_cuda_tensors(cuda, src, dst):
+    """The resize of tables on the card equals the CPU's within 1e-5, with
+    TF32 matmuls allowed (the resize sums its products elementwise), and
+    the token row is copied bit for bit."""
+    from vit_search_torch.models import interpolate_pos_embeds
+
+    gen = torch.Generator().manual_seed(src)
+    sd = {"pos_embed": torch.randn(1, src * src + 1, 240, generator=gen),
+          "blocks.7.pos_embed": torch.randn(1, (src // 2) ** 2, 640, generator=gen)}
+    shapes = {"pos_embed": torch.empty(1, dst * dst + 1, 240),
+              "blocks.7.pos_embed": torch.empty(1, (dst // 2) ** 2, 640)}
+    want = interpolate_pos_embeds(sd, shapes, 1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = interpolate_pos_embeds({k: v.to(cuda) for k, v in sd.items()},
+                                     {k: v.to(cuda) for k, v in shapes.items()}, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        assert float((got[k].cpu() - v).abs().max()) <= 1e-5, k
+    assert torch.equal(got["pos_embed"][:, :1].cpu(), sd["pos_embed"][:, :1])

@@ -26,7 +26,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
     code = ("import sys, vit_search_torch, vit_search_torch.models, vit_search_torch.train, "
             "vit_search_torch.data, vit_search_torch.convert, vit_search_torch.ops.kernels, "
             "vit_search_torch.ops.stats, vit_search_torch.search, "
-            "vit_search_torch.tools.attn_lab; "
+            "vit_search_torch.tools.attn_lab, vit_search_torch.models.surgery, "
+            "vit_search_torch.data.erasing, vit_search_torch.train.checkpoint, "
+            "vit_search_torch.train.state; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -76,6 +78,38 @@ def test_train_step_needs_cuda_unless_cpu_is_asked(no_cuda):
     step = make_train_step(model, opt, TrainConfig(num_classes=4), device="cpu")
     metrics = step(torch.zeros(2, 28, 28, 3, dtype=torch.uint8), torch.tensor([0, 1]))
     assert np.isfinite(float(metrics["loss"]))
+
+
+def test_finetune_path_needs_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
+    """The searched-net step with erasing and EMA, a checkpoint, and the
+    finetune of a 392 px net from it: each entry point refuses to start
+    without a card unless the CPU is asked for."""
+    from vit_search_torch.models import create_model
+    from vit_search_torch.train import (CheckpointManager, OptimConfig, TrainConfig,
+                                        load_finetune, make_eval_step, make_optimizer,
+                                        make_train_step)
+
+    net = ((4, 16), (1, (16, 2, 8), (16, 32), 1), (2, 16, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("flexible_vit_sr_patch14_392_patch_output", network_def=net,
+                     num_classes=4)
+    model = create_model("flexible_vit_sr_patch14_224_patch_output", network_def=net,
+                         img_size=56, num_classes=4, device="cpu")
+    cfg = TrainConfig(num_classes=4, mixup_mode="token", patch_len=4, ema_decay=0.9,
+                      erasing_prob=0.25)
+    opt = make_optimizer(OptimConfig(clip_grad=1.0), model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, opt, cfg)
+    step = make_train_step(model, opt, cfg, device="cpu")
+    step(torch.zeros(2, 56, 56, 3, dtype=torch.uint8), torch.tensor([0, 1]))
+    CheckpointManager(str(tmp_path)).save("best_ema", step, {})
+    big = create_model("flexible_vit_sr_patch14_392_patch_output", network_def=net,
+                       num_classes=4, device="cpu")
+    load_finetune(big, str(tmp_path / "best_ema"))
+    assert big.pos_embed.shape == (1, 28 * 28 + 1, 16)
+    metrics = make_eval_step(big, device="cpu")(torch.zeros(1, 392, 392, 3, dtype=torch.uint8),
+                                                torch.tensor([0]))
+    assert np.isfinite(float(metrics["loss_sum"]))
 
 
 def test_eval_and_search_need_cuda_unless_cpu_is_asked(no_cuda):

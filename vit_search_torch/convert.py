@@ -12,11 +12,16 @@ reference torch keys; :func:`to_jax` goes back. ``to_jax`` computes what
 - BatchNorm ``scale``/``bias`` and ``mean``/``var`` <-> ``weight``/``bias``
   and ``running_mean``/``running_var``;
 - ``blocks_<slot>`` <-> ``blocks.<slot - 1>`` (bypass slots keep their index).
+
+An EMA tree is a ``params`` tree: ``from_jax(ema_params, None, net)`` gives
+the port's EMA dict (parameters only, no BN statistics), and ``to_jax`` of
+such a dict gives ``(ema_params, {})``. The same functions carry every
+registered resolution: the tables' lengths follow the arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +54,10 @@ def _to_conv(sd: Dict, name: str, leaf: Mapping) -> None:
         sd[f"{name}.bias"] = _np(leaf["bias"])
 
 
-def from_jax(params: Mapping, batch_stats: Mapping, network_def) -> Dict[str, np.ndarray]:
-    """JAX ``(params, batch_stats)`` -> the port's state dict (numpy values)."""
+def from_jax(params: Mapping, batch_stats: Optional[Mapping],
+             network_def) -> Dict[str, np.ndarray]:
+    """JAX ``(params, batch_stats)`` -> the port's state dict (numpy values);
+    with ``batch_stats=None`` (an EMA tree), the parameters alone."""
     sd: Dict[str, np.ndarray] = {}
     pe = params["patch_embed"]
     if nd.block_type(network_def[0]) == nd.LINEAR_EMBED:
@@ -64,6 +71,8 @@ def from_jax(params: Mapping, batch_stats: Mapping, network_def) -> Dict[str, np
         for c in ("conv1", "conv2", "conv3"):
             _to_conv(sd, f"patch_embed.{c}.conv", pe[c]["conv"])
             _to_norm(sd, f"patch_embed.{c}.bn", pe[c]["bn"])
+            if batch_stats is None:
+                continue
             stats = batch_stats["patch_embed"][c]["bn"]
             sd[f"patch_embed.{c}.bn.running_mean"] = _np(stats["mean"])
             sd[f"patch_embed.{c}.bn.running_var"] = _np(stats["var"])
@@ -115,7 +124,9 @@ def _conv(sd: Mapping, name: str) -> Dict:
 
 
 def to_jax(state_dict: Mapping, network_def) -> Tuple[Dict, Dict]:
-    """The port's state dict (tensors or arrays) -> JAX ``(params, batch_stats)``."""
+    """The port's state dict (tensors or arrays) -> JAX ``(params,
+    batch_stats)``; a dict without BN statistics (an EMA dict) gives empty
+    ``batch_stats``."""
     sd = {k: _np(v) for k, v in state_dict.items()}
     params: Dict = {}
     batch_stats: Dict = {}
@@ -131,10 +142,12 @@ def to_jax(state_dict: Mapping, network_def) -> Tuple[Dict, Dict]:
         for c in ("conv1", "conv2", "conv3"):
             name = f"patch_embed.{c}.bn"
             pe[c] = {"conv": _conv(sd, f"patch_embed.{c}.conv"), "bn": _norm(sd, name)}
-            pe_stats[c] = {"bn": {"mean": sd[f"{name}.running_mean"],
-                                  "var": sd[f"{name}.running_var"]}}
+            if f"{name}.running_mean" in sd:
+                pe_stats[c] = {"bn": {"mean": sd[f"{name}.running_mean"],
+                                      "var": sd[f"{name}.running_var"]}}
         params["patch_embed"] = pe
-        batch_stats["patch_embed"] = pe_stats
+        if pe_stats:
+            batch_stats["patch_embed"] = pe_stats
 
     params["tokens"] = sd["tokens"]
     params["pos_embed"] = sd["pos_embed"]

@@ -2,8 +2,9 @@
 
 from .layers import Attention, Block, MaskedLayerNorm, Mlp
 from .patch_embed import BatchNorm, ConvBnAct, PatchConvEmbed, PatchEmbed
-from .registry import available_models, create_model
+from .registry import available_models, create_model, is_supernet_model
 from .supernet import SupernetSchedules, build_arch_masks
+from .surgery import interpolate_pos_embeds, rewire_params, slice_subnet_params
 from .vit_sr import SpatialReductionPatchEmbed, VisionTransformerSR
 
 __all__ = [
@@ -21,4 +22,8 @@ __all__ = [
     "available_models",
     "build_arch_masks",
     "create_model",
+    "interpolate_pos_embeds",
+    "is_supernet_model",
+    "rewire_params",
+    "slice_subnet_params",
 ]

@@ -1,9 +1,10 @@
 """Model registry: name -> module factory (the timm ``create_model`` role).
 
-Port of the ViT-SR patch-14/224 names of vit_search_tpu/models/registry.py.
-``*_supernet`` names build the same module as their base name: supernet
-training is a property of the masks fed at call time. The other names (other
-resolutions, flat ViTs, DeiT, the RegNet teacher) wait for a later slice.
+Port of the ViT-SR patch-14 names of vit_search_tpu/models/registry.py: the
+six 224 px names and the 280/336/392 px patch-output nets the finetune scripts
+train. ``*_supernet`` names build the same module as their base name: supernet
+training is a property of the masks fed at call time. The other names (flat
+ViTs, DeiT, the RegNet teacher) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {}
 def register_model(fn: Callable[..., Any]) -> Callable[..., Any]:
     _REGISTRY[fn.__name__] = fn
     return fn
+
+
+def is_supernet_model(name: str) -> bool:
+    return name.endswith("_supernet")
 
 
 def available_models() -> List[str]:
@@ -72,3 +77,18 @@ def flexible_vit_sr_patch14_224_supernet(**kwargs):
 @register_model
 def flexible_vit_sr_patch14_224_patch_output_supernet(**kwargs):
     return _vit_sr(224, distill_token=False, patch_output=True, **kwargs)
+
+
+@register_model
+def flexible_vit_sr_patch14_280_patch_output(**kwargs):
+    return _vit_sr(280, distill_token=False, patch_output=True, **kwargs)
+
+
+@register_model
+def flexible_vit_sr_patch14_336_patch_output(**kwargs):
+    return _vit_sr(336, distill_token=False, patch_output=True, **kwargs)
+
+
+@register_model
+def flexible_vit_sr_patch14_392_patch_output(**kwargs):
+    return _vit_sr(392, distill_token=False, patch_output=True, **kwargs)

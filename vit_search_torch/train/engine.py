@@ -1,22 +1,25 @@
 """The train step and the eval steps.
 
-Port of ``make_train_step`` (vit_search_tpu/train/engine.py:76-186), token
-mixup branch:
+Port of ``make_train_step`` (vit_search_tpu/train/engine.py:76-186):
 
-  raw batch -> normalize uint8 -> unpack keep counts -> build masks
-  -> token mixup -> masked forward (patch_output_type="seq")
-  -> soft-target CE on the cls and patch heads -> backward -> AdamW
-  -> {loss, grad_norm, lr}
+  raw batch -> normalize uint8 -> random erasing -> unpack keep counts
+  -> build masks -> token mixup -> masked forward (patch_output_type="seq")
+  -> loss (soft-target CE on the cls and patch heads under token mixup,
+  else label-smoothing CE) -> backward -> global norm -> clip -> AdamW
+  -> EMA -> {loss, grad_norm, lr}
 
-Host draws (token mixup) come from a ``numpy.random.Generator`` and device
-draws (stochastic depth) from a ``torch.Generator`` on the model's device,
-both seeded by ``seed``; a :class:`StepDraws` injects either, so tests can
-feed in the JAX package's draws. Mixup/CutMix, random erasing, EMA and
-knowledge distillation wait for a later slice.
+``grad_norm`` is measured before clipping, as ``optax.global_norm(grads)``
+is. Host draws (token mixup, erasing boxes) come from a
+``numpy.random.Generator`` and device draws (stochastic depth, erasing
+noise) from a ``torch.Generator`` on the model's device, both seeded by
+``seed``; a :class:`StepDraws` injects any of them, so tests can feed in the
+JAX package's draws. Mixup/CutMix (``mixup_mode="mixup"``) and knowledge
+distillation wait for a later slice and raise ``NotImplementedError``.
 
 ``make_eval_step`` and ``make_per_example_correct_step`` (engine.py:189-252)
 run the model in eval mode under ``torch.no_grad()``, uint8 batches
-normalized on the device.
+normalized on the device; ``make_eval_step`` scores the model's parameters
+or another set of them, such as the EMA.
 """
 
 from __future__ import annotations
@@ -27,11 +30,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.erasing import ErasingDraws, random_erasing
 from ..data.mixup import TokenMixDraws, switch_token_mix
 from ..device import resolve_device
 from ..models.supernet import build_arch_masks
 from . import losses
-from .state import TrainState
+from .optim import clip_by_global_norm_
+from .state import TrainState, ema_update, init_ema
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +45,12 @@ class TrainConfig:
     smoothing: float = 0.1
     mixup_mode: str = "none"        # 'none' | 'token'; 'mixup' not ported yet
     patch_len: int = 4              # token-mixup grid (56px patches at 224px)
+    ema_decay: Optional[float] = None
     mean: tuple = (0.485, 0.456, 0.406)
     std: tuple = (0.229, 0.224, 0.225)
+    erasing_prob: float = 0.0       # --reprob
+    erasing_mode: str = "pixel"     # --remode: pixel | rand | const
+    erasing_count: int = 1          # --recount (timm max_count)
 
 
 @dataclasses.dataclass
@@ -50,6 +59,7 @@ class StepDraws:
 
     mix: Optional[TokenMixDraws] = None
     drop_keeps: Optional[List[torch.Tensor]] = None  # (B,) keeps in call order
+    erasing: Optional[ErasingDraws] = None
 
 
 def normalize(images: torch.Tensor, config: TrainConfig) -> torch.Tensor:
@@ -83,18 +93,31 @@ class TrainStep:
 
     ``counts`` is the keep-count tree, or with ``counts_unpack``
     (``SupernetSchedules.unpack``) one packed int vector; ``None`` trains the
-    dense net. ``loss`` and ``grad_norm`` stay on the device.
+    dense net. ``loss`` and ``grad_norm`` stay on the device. With
+    ``config.ema_decay`` the step keeps an EMA of the parameters in
+    ``state.ema_params``; the optimizer's ``clip_grad`` (``make_optimizer``)
+    clips the gradients by their global norm.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  config: TrainConfig, schedule: Optional[Callable[[int], float]] = None,
-                 counts_unpack: Optional[Callable] = None, seed: int = 0, device=None):
+                 counts_unpack: Optional[Callable] = None, seed: int = 0, device=None,
+                 teacher: Optional[Callable] = None):
         device = model_device(model, device)
         if config.mixup_mode not in ("none", "token"):
-            raise NotImplementedError(f"mixup_mode {config.mixup_mode!r} is not ported yet")
+            raise NotImplementedError(
+                f"mixup_mode {config.mixup_mode!r} is not ported yet: timm Mixup/CutMix "
+                f"(vit_search_tpu/data/mixup.py::mixup_cutmix) waits for a later slice")
+        if teacher is not None:
+            raise NotImplementedError(
+                "knowledge distillation is not ported yet: the RegNet teacher and the "
+                "distillation loss (vit_search_tpu/train/engine.py:62-65,123-160) wait "
+                "for a later slice")
         self.model, self.optimizer, self.config = model, optimizer, config
         self.schedule, self.counts_unpack = schedule, counts_unpack
-        self.state = TrainState()
+        self.named_params = dict(model.named_parameters())
+        self.state = TrainState(ema_params=init_ema(self.named_params)
+                                if config.ema_decay else None)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -106,6 +129,9 @@ class TrainStep:
         model.train()
 
         images = normalize(images, config)
+        images = random_erasing(images, config.erasing_prob, config.erasing_mode,
+                                config.erasing_count, draws=draws.erasing, rng=self.rng,
+                                generator=self.generator)
         batch = images.shape[0]
         if counts is not None and self.counts_unpack is not None:
             counts = self.counts_unpack(torch.as_tensor(counts, device=images.device), batch)
@@ -134,50 +160,90 @@ class TrainStep:
         for p in self.params:       # optax updates every leaf, used or not
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad.float()) for p in self.params]))
+        grads = [p.grad for p in self.params]
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        clip_grad = self.optimizer.param_groups[0].get("clip_grad")
+        if clip_grad:
+            clip_by_global_norm_(grads, clip_grad, grad_norm)
 
         lr = self.schedule(self.state.step) if self.schedule is not None else None
         if lr is not None:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
         self.optimizer.step()
+        if self.state.ema_params is not None:
+            ema_update(self.state.ema_params, self.named_params, config.ema_decay)
         self.state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
+
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds: the step, the parameters, the BN
+        statistics, the optimizer's state and the EMA (or ``None``)."""
+        return {"step": self.state.step,
+                "params": {n: p.detach() for n, p in self.model.named_parameters()},
+                "batch_stats": {n: b for n, b in self.model.named_buffers()},
+                "optimizer": self.optimizer.state_dict(),
+                "ema_params": self.state.ema_params}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s output in place (strict on every key)."""
+        self.model.load_state_dict({**state["params"], **state["batch_stats"]}, strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        ema = state["ema_params"]
+        if (ema is None) != (self.state.ema_params is None):
+            raise ValueError("the checkpoint and the step disagree on keeping an EMA")
+        if ema is not None:
+            if sorted(ema) != sorted(self.state.ema_params):
+                raise KeyError("the checkpoint's EMA names other parameters")
+            for name, t in self.state.ema_params.items():
+                t.copy_(ema[name])
+        self.state.step = int(state["step"])
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     config: TrainConfig, schedule: Optional[Callable[[int], float]] = None,
                     counts_unpack: Optional[Callable] = None, seed: int = 0,
-                    device=None) -> TrainStep:
+                    device=None, teacher: Optional[Callable] = None) -> TrainStep:
     """Build the train step; it runs on the CUDA device unless
-    ``device="cpu"`` is asked for, and ``model`` must already be there."""
-    return TrainStep(model, optimizer, config, schedule, counts_unpack, seed, device)
+    ``device="cpu"`` is asked for, and ``model`` must already be there.
+    ``teacher`` (knowledge distillation) is not ported yet and raises."""
+    return TrainStep(model, optimizer, config, schedule, counts_unpack, seed, device, teacher)
 
 
 def _eval_outputs(model: torch.nn.Module, device: torch.device, images: torch.Tensor,
-                  labels: torch.Tensor, counts: Optional[Dict]):
-    """Eval-mode forward: ``(cls_pred, dst_pred or None)``."""
+                  labels: torch.Tensor, counts: Optional[Dict],
+                  params: Optional[Dict[str, torch.Tensor]] = None):
+    """Eval-mode forward, with ``params`` in place of the model's parameters
+    where given: ``(cls_pred, dst_pred or None)``."""
     check_on(device, images=images, labels=labels)
     model.eval()
     images = normalize(images, TrainConfig())
     masks = build_arch_masks(counts, model.network_def, images.shape[0], device=device)
-    outputs = model(images, masks)
+    if params is None:
+        outputs = model(images, masks)
+    else:
+        if sorted(params) != sorted(n for n, _ in model.named_parameters()):
+            raise KeyError("params must name every parameter of the model")
+        outputs = torch.func.functional_call(model, params, (images, masks))
     return outputs if isinstance(outputs, tuple) else (outputs, None)
 
 
 def make_eval_step(model: torch.nn.Module, device=None) -> Callable:
-    """``eval_step(images, labels, counts=None)`` -> summed metrics on the
-    device: ``loss_sum``, ``top1``, ``top5``, ``count``, plus ``dst_*`` and
-    ``jnt_*`` top-k for a distill-token model (reference engine.py:194-261).
-    ``counts`` is a keep-count tree (round-robin over the batch) or ``None``
-    for the dense net. Runs on the CUDA device unless ``device="cpu"``."""
+    """``eval_step(images, labels, counts=None, params=None)`` -> summed
+    metrics on the device: ``loss_sum``, ``top1``, ``top5``, ``count``, plus
+    ``dst_*`` and ``jnt_*`` top-k for a distill-token model (reference
+    engine.py:194-261). ``counts`` is a keep-count tree (round-robin over the
+    batch) or ``None`` for the dense net. ``params`` (name -> tensor, e.g. a
+    train step's ``state.ema_params``) replaces the model's parameters for
+    the call, the BN statistics kept. Runs on the CUDA device unless
+    ``device="cpu"``."""
     device = model_device(model, device)
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, labels: torch.Tensor,
-                  counts: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        cls_pred, dst_pred = _eval_outputs(model, device, images, labels, counts)
+                  counts: Optional[Dict] = None,
+                  params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        cls_pred, dst_pred = _eval_outputs(model, device, images, labels, counts, params)
         batch = images.shape[0]
         metrics = {"count": torch.tensor(float(batch), device=device),
                    "loss_sum": losses.cross_entropy(cls_pred, labels) * batch}

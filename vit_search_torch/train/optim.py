@@ -8,7 +8,11 @@ Port of vit_search_tpu/train/optim.py:
 - weight decay applies to parameters of rank > 1 except the token table
   (``pos_embed`` included), the JAX package's mask (optim.py:180-188);
 - the per-epoch LR curve of timm 0.3.2's schedulers (cosine, step, tanh,
-  optional noise), constant within an epoch.
+  optional noise), constant within an epoch;
+- ``clip_grad``: optax ``clip_by_global_norm`` before AdamW, as the JAX
+  package chains it (optim.py:196-197). :func:`make_optimizer` keeps the
+  value in each parameter group (``"clip_grad"``), where the train step,
+  which already holds the global norm, reads it.
 """
 
 from __future__ import annotations
@@ -132,13 +136,26 @@ def weight_decay_groups(model: nn.Module) -> Tuple[List[nn.Parameter], List[nn.P
     return decay, no_decay
 
 
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor) -> None:
+    """optax ``clip_by_global_norm(max_norm)`` in place, given the global
+    norm of ``grads``: each becomes ``(g / norm) * max_norm`` when ``norm >=
+    max_norm`` and stays as it is otherwise; no epsilon. (Not
+    ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm and
+    always scales.) The choice is made on the device: no host sync."""
+    clip = norm >= max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(clip, norm, one))
+    torch._foreach_mul_(grads, torch.where(clip, torch.full_like(norm, max_norm), one))
+
+
 def make_optimizer(config: OptimConfig, model: nn.Module) -> torch.optim.AdamW:
-    """AdamW over two parameter groups (decayed / not). The train step sets
-    each group's ``lr`` from the schedule before every update."""
-    if config.clip_grad:
-        raise NotImplementedError("gradient clipping is not ported yet")
+    """AdamW over two parameter groups (decayed / not), each carrying
+    ``clip_grad``. The train step sets each group's ``lr`` from the schedule
+    before every update."""
     decay, no_decay = weight_decay_groups(model)
     return torch.optim.AdamW(
-        [{"params": decay, "weight_decay": config.weight_decay},
-         {"params": no_decay, "weight_decay": 0.0}],
+        [{"params": decay, "weight_decay": config.weight_decay, "clip_grad": config.clip_grad},
+         {"params": no_decay, "weight_decay": 0.0, "clip_grad": config.clip_grad}],
         lr=float(lr_schedule(config)(0)), betas=(config.beta1, config.beta2), eps=config.eps)
