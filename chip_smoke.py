@@ -30,8 +30,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    supernet's: the 392 px finetune's stage 1 (N = 785, D = 32, where the
    bf16 backward takes the split route), K1/K2 in bf16 and float32 and
    K6-K9 in bf16, and K1/K2 at a head dim of 24; then K1/K2 at the searched
-   Tiny net's stages (widest heads, B = 512) and at the 392 px finetune's
-   three stages (B = 64);
+   Tiny net's stages (widest heads, B = 512), at the 392 px finetune's
+   three stages (B = 64) and at DeiT-S's shape (B = 512, N = 198, 6 heads
+   of 64);
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32
    (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
@@ -40,7 +41,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within ``REF_NET_BF16_TOL``; then the same net trained densely, as a
    searched net, with random erasing, gradient clipping and the EMA on, the
    draws made once on the host for both devices, in float32 and bfloat16:
-   loss, gradient norm, logits and the EMA within the same tolerances;
+   loss, gradient norm, logits and the EMA within the same tolerances; then
+   the same net with a distill token, one step with timm Mixup/CutMix
+   (``elem`` mode), dropout 0.1 with injected keeps and hard distillation
+   from a narrow RegNetY teacher behind a shrinking resize, in float32 and
+   bfloat16 (the teacher in float32: a bf16 teacher's hard labels flip on
+   near-ties); the teacher's logits card vs CPU in float32 and, apart, in
+   bfloat16;
 5. the op-level API at each stage shape, forward and backward through
    autograd: ``fused_attention_packed`` and ``fused_attention`` (K6/K7),
    ``fused_attention_qkv_t`` (K8/K9); outputs of the expected shapes, the
@@ -67,6 +74,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    batch 64, patch_len 7, drop_path 0.75, lr 5e-6, weight decay 1e-8,
    erasing and EMA on: K1/K2 20 launches per step, and the profiled step's
    backward launches by name show K2's split route at stage 1 (N = 785);
+   mixup (``super_net/no_distill/tiny_mh.sh``): the script's own network_def
+   (linear stem) as ``flexible_vit_sr_patch14_224_supernet``, space
+   ``sr_tiny_mh``, batch 512, 32 examples per architecture, timm
+   Mixup/CutMix (0.8 / 1.0, switch 0.5, batch mode), smoothing 0.1,
+   drop_path 0.2, tanh GELU, bf16, no EMA: K1/K2 18 and K3/K4 39 launches
+   per step;
+   distill (the DeiT-S distillation recipe of the facebookresearch/deit
+   README): ``deit_small_distill_patch16_224`` at batch 512 with hard
+   distillation (alpha 0.5) from ``regnety_160_upsample`` (RegNetY-16GF,
+   random weights from seed 0, bf16, eval mode), Mixup/CutMix as above,
+   smoothing 0.1, drop_path 0.1, EMA 0.99996: K1/K2 12 launches per step at
+   (198, 6, 64), K3-K5 none; the teacher's forward timed apart by CUDA
+   events, its share of the step reported;
 7. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
    the default: K1 and K3): the same supernet scores an evolutionary
    population (20 random candidates, then one generation of 8 mutations and
@@ -82,8 +102,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exactly as often as the run calls it, and the lab's kernels against their
    plain versions at the lab's shapes;
 9. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
-   reports (``train``; ``searched``; ``finetune``; ``ops``; ``shapes``;
-   ``lab``; ``search``, the stats route; ``search_fused``) and its launches
+   reports (``train``; ``searched``; ``finetune``; ``distill``; ``ops``;
+   ``shapes``; ``lab``; ``search``, the stats route; ``search_fused``) and
+   its launches
    per pass of that path (a train step, one call of each op-level entry
    point, one call at one of the extra shapes, one shape of the lab, or a
    scoring forward), then the last line ``{"ok": true, "device": {...}}``.
@@ -178,6 +199,26 @@ EMA_DECAY = 0.99996
 ERASING = {"erasing_prob": 0.25, "erasing_mode": "pixel"}
 PER_SEARCHED_STEP = per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16)
 PER_FINETUNE_STEP = per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20)
+# the mixup path: super_net/no_distill/tiny_mh.sh, which trains the supernet
+# with timm Mixup/CutMix (no --use-patch-mixup), its network_def read from
+# the script; the same launches as the train step (K1/K2 18, K3/K4 39)
+MIXUP_SCRIPT = "scripts/vit-sr-nas/super_net/no_distill/tiny_mh.sh"
+MIXUP_MODEL = "flexible_vit_sr_patch14_224_supernet"
+MIXUP = {"mixup_mode": "mixup", "mixup_alpha": 0.8, "cutmix_alpha": 1.0,
+         "mixup_switch_prob": 0.5, "mixup_prob": 1.0, "mixup_elem_mode": "batch"}
+# the distill path: the DeiT-S distillation recipe (facebookresearch/deit
+# README: deit_small_distilled_patch16_224 --distillation-type hard
+# --teacher-model regnety_160) at the batch the other paths take (DeiT's
+# global 1024 halved); 12 blocks of 6 heads of 64 at N = 196 + 2 tokens
+DISTILL_MODEL = "deit_small_distill_patch16_224"
+TEACHER_MODEL = "regnety_160_upsample"
+PER_DISTILL_STEP = per_pass(attention_qkv_fwd=12, attention_qkv_bwd=12)
+DISTILL_SHAPES = (("DeiT-S", BATCH, 198, 6, 64),)
+# the small net's distill check: dropout rate, and the narrow teacher behind
+# a 112 -> 96 px resize
+REF_DROPOUT = 0.1
+REF_TEACHER = {"target_size": 96, "widths": (32, 64), "depths": (1, 2), "group_width": 16,
+               "stem_width": 16, "num_classes": 10}
 # (label, batch, N, heads, head_dim): the searched Tiny net's stages at their
 # widest heads; the finetune's are FINETUNE_392
 SEARCHED_SHAPES = (("searched stage 1", BATCH, 257, 4, 32),
@@ -752,11 +793,13 @@ def check_extra_shapes(reps: int):
 
 
 def check_dense_shapes(reps: int):
-    """K1/K2 at the shapes the searched and finetune paths give them: the
-    searched Tiny net's stages at their widest heads (B 512) and the 392 px
-    finetune's three stages (B 64; stage 1 on the split route), bf16."""
+    """K1/K2 at the shapes the searched, finetune and distill paths give
+    them: the searched Tiny net's stages at their widest heads (B 512), the
+    392 px finetune's three stages (B 64; stage 1 on the split route) and
+    DeiT-S's (B 512, N 198, 6 heads of 64), bf16."""
     entries = []
-    for path, shapes in (("searched", SEARCHED_SHAPES), ("finetune", FINETUNE_392)):
+    for path, shapes in (("searched", SEARCHED_SHAPES), ("finetune", FINETUNE_392),
+                         ("distill", DISTILL_SHAPES)):
         for label, b, n, h, d in shapes:
             entries += check_attention(label, reps, b, path, backward=True, nhd=(n, h, d))
     return entries
@@ -778,7 +821,8 @@ def check_kernels(stage: int, reps: int):
             + check_row_stats(stage, reps, SEARCH_BATCH, "search"))
 
 
-def check_reference_net(ln_route: str, dtype=None, dense: bool = False):
+def check_reference_net(ln_route: str, dtype=None, dense: bool = False,
+                        distill: bool = False):
     """A small conv-stem supernet, float32 (or ``dtype``): card (kernels) vs
     CPU (plain). In bfloat16 the loss, gradient norm and logits are held to
     ``REF_NET_BF16_TOL``; AdamW's first step moves each parameter by about lr
@@ -787,14 +831,23 @@ def check_reference_net(ln_route: str, dtype=None, dense: bool = False):
     norms) with random erasing, gradient clipping and the EMA on, the erasing
     boxes and noise drawn once on the host for both devices; the EMA (decay
     ``EMA_DECAY``, which damps the step's difference) is held to the
-    parameters' float32 tolerance in both dtypes."""
+    parameters' float32 tolerance in both dtypes. ``distill`` gives the net
+    a distill token and trains it with timm Mixup/CutMix (``elem`` mode),
+    dropout ``REF_DROPOUT`` and hard distillation from a narrow RegNetY
+    teacher (``REF_TEACHER``: the 112 px batch resized to 96 px), the mixup
+    draws and dropout keeps made once on the host; the teacher runs in
+    float32 in both dtypes (in bf16 its hard labels flip on near-ties, which
+    the loss cannot absorb), its logits held card vs CPU within 1e-4 in
+    float32 and, on the same input in bfloat16, within the bf16 logits
+    tolerance."""
     import numpy as np
     import torch
-    from vit_search_torch.data import sample_erasing_draws
+    from vit_search_torch.data import sample_erasing_draws, sample_mixup_draws
     from vit_search_torch.data.mixup import sample_token_mix_draws
-    from vit_search_torch.models import SupernetSchedules, build_arch_masks, create_model
+    from vit_search_torch.models import (RegNetYUpsample, SupernetSchedules, build_arch_masks,
+                                         create_model)
     from vit_search_torch.train import (OptimConfig, StepDraws, TrainConfig, lr_schedule,
-                                        make_optimizer, make_train_step)
+                                        make_optimizer, make_teacher, make_train_step)
 
     dtype = dtype or torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -825,7 +878,10 @@ def check_reference_net(ln_route: str, dtype=None, dense: bool = False):
                       drop_keeps=[torch.as_tensor(rng.random(batch) < 0.9) for _ in range(8)])
     cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2)
     ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch)
+    name = "flexible_vit_sr_patch14_224_patch_output_supernet"
+    extra = {}
     if dense:
+        name = SEARCHED_MODEL
         cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2, ema_decay=EMA_DECAY,
                           erasing_prob=0.5, erasing_mode="pixel", erasing_count=2)
         ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch,
@@ -833,37 +889,58 @@ def check_reference_net(ln_route: str, dtype=None, dense: bool = False):
         draws.erasing = sample_erasing_draws(rng, batch, img, img, 0.5, 2)
         draws.erasing.fill = torch.randn(2, batch, img, img, 3,
                                          generator=torch.Generator().manual_seed(2))
+    if distill:
+        name = "flexible_vit_sr_distill_patch14_224_supernet"
+        extra = {"dropout_rate": REF_DROPOUT}
+        cfg = TrainConfig(num_classes=10, mixup_mode="mixup", mixup_elem_mode="elem",
+                          distill_alpha=0.5, hard_distill=True)
+        draws.mix, draws.mixup = None, sample_mixup_draws(rng, batch, img, img, mode="elem")
     results = {}
     for dev in ("cpu", "cuda"):
-        model = create_model(SEARCHED_MODEL if dense else
-                             "flexible_vit_sr_patch14_224_patch_output_supernet",
-                             network_def=net, img_size=img, drop_path_rate=0.1,
-                             gelu="tanh", device=dev, seed=0, ln_route=ln_route, dtype=dtype)
+        model = create_model(name, network_def=net, img_size=img, drop_path_rate=0.1,
+                             gelu="tanh", device=dev, seed=0, ln_route=ln_route, dtype=dtype,
+                             **extra)
+        if distill and draws.dropout_keeps is None:
+            draws.dropout_keeps = [torch.as_tensor(rng.random(shape) >= REF_DROPOUT)
+                                   for shape in model.dropout_shapes(batch)]
         masks = None if dense else build_arch_masks(sched.unpack(counts, batch), net, batch,
                                                     device=dev)
         x = torch.randn(batch, img, img, 3, generator=torch.Generator().manual_seed(1)).to(dev)
-        cls, patch = model(x, masks, patch_output_type="seq",
-                           drop_keeps=[k.to(dev) for k in draws.drop_keeps])
+        dev_draws = StepDraws(mix=draws.mix, drop_keeps=[k.to(dev) for k in draws.drop_keeps],
+                              erasing=draws.erasing, mixup=draws.mixup,
+                              dropout_keeps=None if draws.dropout_keeps is None else
+                              [k.to(dev) for k in draws.dropout_keeps])
+        heads = model(x, masks, patch_output_type="seq", drop_keeps=dev_draws.drop_keeps,
+                      dropout_keeps=dev_draws.dropout_keeps)
+        teacher, teacher_logits = None, {}
+        if distill:
+            teacher_model = RegNetYUpsample(**REF_TEACHER, device=dev, seed=3)
+            teacher = make_teacher(teacher_model)
+            teacher_logits["float32"] = teacher(x).cpu()
+            teacher_bf16 = RegNetYUpsample(**REF_TEACHER, device=dev, seed=3,
+                                           dtype=torch.bfloat16)
+            teacher_logits["bfloat16"] = make_teacher(teacher_bf16)(x).float().cpu()
         step = make_train_step(model, make_optimizer(ocfg, model), cfg,
                                schedule=lr_schedule(ocfg),
-                               counts_unpack=None if dense else sched.unpack, device=dev)
-        dev_draws = StepDraws(mix=draws.mix, drop_keeps=[k.to(dev) for k in draws.drop_keeps],
-                              erasing=draws.erasing)
+                               counts_unpack=None if dense else sched.unpack, device=dev,
+                               teacher=teacher)
         metrics = step(images.to(dev), labels.to(dev), counts, draws=dev_draws)
         ema = {k: v.detach().cpu() for k, v in (step.state.ema_params or {}).items()}
-        results[dev] = (cls.detach().cpu(), patch.detach().cpu(), float(metrics["loss"]),
+        results[dev] = ([h.detach().cpu() for h in heads], float(metrics["loss"]),
                         float(metrics["grad_norm"]),
-                        {k: v.detach().cpu() for k, v in model.state_dict().items()}, ema)
-    (c0, p0, l0, g0, sd0, ema0), (c1, p1, l1, g1, sd1, ema1) = results["cpu"], results["cuda"]
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}, ema,
+                        teacher_logits)
+    (h0, l0, g0, sd0, ema0, t0), (h1, l1, g1, sd1, ema1, t1) = results["cpu"], results["cuda"]
     bf16 = dtype == torch.bfloat16
     tol = REF_NET_BF16_TOL if bf16 else {"logits": (1e-3, 1e-3), "loss": 1e-4,
                                          "grad_norm": 1e-4}
-    errs = {"cls_logits": compare("ref net cls logits", c1, c0, tol["logits"]),
-            "patch_logits": compare("ref net patch logits", p1, p0, tol["logits"])}
-    for name, a, b_ in (("loss", l1, l0), ("grad_norm", g1, g0)):
-        if not math.isclose(a, b_, rel_tol=tol[name]):
-            raise AssertionError(f"ref net {name}: card {a} vs CPU {b_}")
-        errs[name] = abs(a - b_)
+    second = "dst_logits" if distill else "patch_logits"
+    errs = {"cls_logits": compare("ref net cls logits", h1[0], h0[0], tol["logits"]),
+            second: compare(f"ref net {second}", h1[1], h0[1], tol["logits"])}
+    for what, a, b_ in (("loss", l1, l0), ("grad_norm", g1, g0)):
+        if not math.isclose(a, b_, rel_tol=tol[what]):
+            raise AssertionError(f"ref net {what}: card {a} vs CPU {b_}")
+        errs[what] = abs(a - b_)
     if dense:
         if not (g0 > clip and g1 > clip):
             raise AssertionError(f"ref net: gradient norms {g0}, {g1} not clipped at {clip}")
@@ -871,6 +948,14 @@ def check_reference_net(ln_route: str, dtype=None, dense: bool = False):
             raise AssertionError("ref net: no image erased")
         errs["ema_params"] = max(compare(f"ref net EMA {k}", ema1[k], ema0[k], (1e-4, 1e-4),
                                          floor=1e-6) for k in ema0)
+    if distill:
+        errs["teacher_logits_f32"] = compare("ref net teacher logits", t1["float32"],
+                                             t0["float32"], (1e-4, 1e-4))
+        errs["teacher_logits_bf16"] = compare("ref net teacher logits, bf16", t1["bfloat16"],
+                                              t0["bfloat16"], REF_NET_BF16_TOL["logits"])
+        if not np.asarray(draws.mixup.use_cutmix).any() or np.asarray(
+                draws.mixup.use_cutmix).all():
+            raise AssertionError("ref net: the mixup draws took one branch only")
     if bf16:
         return errs
     # AdamW's first step moves each parameter by about lr whatever the
@@ -1258,6 +1343,120 @@ def finetune(steps: int, warmup: int):
     return out
 
 
+def script_network_def(path: str):
+    """The ``--network-def`` literal of a training script, parsed by the
+    port's ``parse_network_def``."""
+    import re
+    import shlex
+
+    from vit_search_torch.arch import parse_network_def
+
+    with open(os.path.join(HERE, path)) as f:
+        args = shlex.split(re.sub(r"\\\n", " ", f.read()), comments=True)
+    return parse_network_def(args[args.index("--network-def") + 1])
+
+
+def mixup(steps: int, warmup: int):
+    """super_net/no_distill/tiny_mh.sh: the supernet of the script's own
+    network_def (linear stem, sr_tiny_mh widths), space ``sr_tiny_mh``,
+    batch ``BATCH``, 32 examples per architecture, timm Mixup/CutMix in
+    batch mode, smoothing 0.1, drop_path 0.2, tanh GELU, bf16, AdamW, no
+    EMA; the same kernel launches per step as the train step."""
+    import gc
+
+    import numpy as np
+    import torch
+    from vit_search_torch.arch import network_def as nd
+    from vit_search_torch.arch import spaces
+    from vit_search_torch.models import SupernetSchedules, create_model
+    from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
+                                        make_optimizer, make_train_step)
+
+    gc.collect()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    net = script_network_def(MIXUP_SCRIPT)
+    if nd.block_type(net[0]) != nd.LINEAR_EMBED or nd.existing_depth(net) != ATTENTION:
+        raise AssertionError(f"{MIXUP_SCRIPT}: not the linear-stem 18-block supernet")
+    model = create_model(MIXUP_MODEL, network_def=net, dtype=torch.bfloat16, drop_path_rate=0.2,
+                         gelu="tanh", seed=0)
+    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=120, steps_per_epoch=1000,
+                       global_batch_size=BATCH)
+    sched = SupernetSchedules(net, spaces.get_space("sr_tiny_mh"),
+                              example_per_arch=EXAMPLE_PER_ARCH, num_warmup_epochs=0,
+                              arch_mode="multi")
+    step = make_train_step(model, make_optimizer(ocfg, model),
+                           TrainConfig(num_classes=1000, smoothing=0.1, **MIXUP),
+                           schedule=lr_schedule(ocfg), counts_unpack=sched.unpack, seed=0)
+    images, labels = synthetic_batch(BATCH, 224, 4)
+    rng = np.random.default_rng(0)
+    out = run_steps("mixup", step, images, labels, lambda: sched.sample_packed(rng, BATCH),
+                    steps, warmup, PER_STEP)
+    out["network_def"] = repr(net)
+    return out
+
+
+def distill(steps: int, warmup: int):
+    """The DeiT-S distillation recipe: ``deit_small_distill_patch16_224``
+    (bf16, exact GELU, drop_path 0.1) at batch ``BATCH``, hard distillation
+    (alpha 0.5) from ``regnety_160_upsample`` (random weights from seed 0,
+    bf16, eval mode), Mixup/CutMix in batch mode, smoothing 0.1, EMA
+    0.99996, AdamW. K1/K2 12 launches per step, K3-K5 none (a dense net's
+    layer norms are plain). The teacher's forward is bracketed by CUDA
+    events in every step; the timed steps' mean is its time per step."""
+    import gc
+
+    import torch
+    from vit_search_torch.arch import network_def as nd
+    from vit_search_torch.models import create_model
+    from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
+                                        make_optimizer, make_teacher, make_train_step,
+                                        normalize)
+
+    gc.collect()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    model = create_model(DISTILL_MODEL, dtype=torch.bfloat16, drop_path_rate=0.1, seed=0)
+    if nd.existing_depth(model.network_def) != PER_DISTILL_STEP["attention_qkv_fwd"]:
+        raise AssertionError("PER_DISTILL_STEP does not count the net's attention layers")
+    teacher_model = create_model(TEACHER_MODEL, dtype=torch.bfloat16, seed=0)
+    forward = make_teacher(teacher_model)
+    events = []
+
+    def teacher(images):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        logits = forward(images)
+        end.record()
+        events.append((start, end))
+        return logits
+
+    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=300, steps_per_epoch=1000,
+                       global_batch_size=BATCH)
+    cfg = TrainConfig(num_classes=1000, smoothing=0.1, **MIXUP, distill_alpha=0.5,
+                      hard_distill=True, ema_decay=EMA_DECAY)
+    step = make_train_step(model, make_optimizer(ocfg, model), cfg, schedule=lr_schedule(ocfg),
+                           seed=0, teacher=teacher)
+    images, labels = synthetic_batch(BATCH, 224, 5)
+    out = run_steps("distill", step, images, labels, lambda: None, steps, warmup,
+                    PER_DISTILL_STEP)
+    check_ema("distill", step)
+    torch.cuda.synchronize()
+    timed = [s.elapsed_time(e) for s, e in events[warmup:warmup + steps]]
+    out["teacher_ms"] = sum(timed) / len(timed)
+    out["teacher_share"] = out["teacher_ms"] / out["step_ms"]
+    out["teacher_params"] = sum(p.numel() for p in teacher_model.parameters())
+    # the teacher's forward alone under the profiler, by kernel class
+    x = normalize(images, cfg)
+    busy_ms, wall_ms, classes, rows = profile_kernels(lambda: forward(x))
+    out["teacher_profile"] = {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+                              "by_class_ms": classes, "top_kernels": rows}
+    log("distill: the teacher's forward alone, profiled: " + ", ".join(
+        f"{c} {ms:.1f}" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]))
+        + f" ({busy_ms:.1f} ms device-busy)")
+    return out
+
+
 def sub_val_loader():
     """Synthetic sub-val batches of uint8 images on the card, the same at
     every call; the last batch has ``LAST_VALID`` valid rows."""
@@ -1467,6 +1666,11 @@ def main(argv=None) -> int:
             "fused", dtype, dense=True)
         print(f"reference net, dense, erasing + clipping + EMA, {name}: card vs CPU "
               f"{json.dumps(errs)}", flush=True)
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        report[f"reference_net_distill_{name}"] = errs = check_reference_net(
+            "fused", dtype, distill=True)
+        print(f"reference net, distill token, mixup + dropout + KD, {name}: card vs CPU "
+              f"{json.dumps(errs)}", flush=True)
 
     report["ops"] = ops = ops_path()
     log(f"op-level API: {ops['passes']} passes, launches K6/K7 "
@@ -1497,7 +1701,21 @@ def main(argv=None) -> int:
     print(f"finetune 392px: {ft['imgs_per_s']:.1f} imgs/s ({ft['step_ms']:.1f} ms/step, "
           f"batch {ft['batch']}) peak memory {ft['max_memory_allocated_bytes'] / 2**30:.2f} "
           f"GiB on {card}; K2 {routes}", flush=True)
-    log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    report["mixup"] = mx = mixup(STEPS, WARMUP)
+    mx["seconds"] = time.perf_counter() - t0
+    print(f"mixup: {mx['imgs_per_s']:.1f} imgs/s ({mx['step_ms']:.1f} ms/step, batch "
+          f"{mx['batch']}) peak memory {mx['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+          f"on {card}", flush=True)
+    t0 = time.perf_counter()
+    report["distill"] = ds = distill(STEPS, WARMUP)
+    ds["seconds"] = time.perf_counter() - t0
+    print(f"distill: {ds['imgs_per_s']:.1f} imgs/s ({ds['step_ms']:.1f} ms/step, batch "
+          f"{ds['batch']}) peak memory {ds['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+          f"on {card}; teacher forward {ds['teacher_ms']:.1f} ms per step "
+          f"({100 * ds['teacher_share']:.1f}% of the step)", flush=True)
+    log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s, "
+        f"mixup phase {mx['seconds']:.1f} s, distill phase {ds['seconds']:.1f} s")
     # the search on each masked-LN route, one model on the card at a time;
     # one chunk's logits must agree across the routes
     searches, logits = {}, {}
@@ -1522,6 +1740,7 @@ def main(argv=None) -> int:
     runs = {"train": (tr, PER_STEP),
             "searched": (se, PER_SEARCHED_STEP),
             "finetune": (ft, PER_FINETUNE_STEP),
+            "distill": (ds, PER_DISTILL_STEP),
             "ops": (ops, PER_OPS_PASS),
             "shapes": (shapes, PER_SHAPES_CALL),
             "lab": (lab, PER_LAB_SHAPE),

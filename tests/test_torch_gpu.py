@@ -875,3 +875,87 @@ def test_pos_embed_interpolation_of_cuda_tensors(cuda, src, dst):
         assert got[k].device.type == "cuda"
         assert float((got[k].cpu() - v).abs().max()) <= 1e-5, k
     assert torch.equal(got["pos_embed"][:, :1].cpu(), sd["pos_embed"][:, :1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernels_at_the_deit_s_shape(cuda, dtype):
+    """K1/K2 at DeiT-S's shape (N = 196 + 2 tokens, 6 heads of 64), one
+    launch each per call, against their plain versions."""
+    n, h, d = 198, 6, 64
+    gen = torch.Generator(device=cuda).manual_seed(198)
+    qkv = torch.randn(4, n, 3 * h * d, device=cuda, generator=gen).to(dtype)
+    do = torch.randn(4, n, h * d, device=cuda, generator=gen).to(dtype)
+    scale = d ** -0.5
+    assert A.supported(n, d, 0.0) and not A.backward_is_split(n, d)
+    before = (A.K1.launches, A.K2.launches)
+    leaf = qkv.clone().requires_grad_()
+    out = A.fused_attention_qkv(leaf, scale, h)
+    (dqkv,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    assert (A.K1.launches, A.K2.launches) == (before[0] + 1, before[1] + 1)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(out, A.attention_qkv_plain(qkv, scale, h), tol)
+    _close(dqkv, A.attention_qkv_bwd_plain(qkv, do, scale, h), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixup_distill_dropout_step_matches_the_cpu(cuda, dtype):
+    """The small net with a distill token, one step with timm Mixup/CutMix,
+    dropout 0.1 and hard distillation from a narrow RegNetY teacher behind a
+    resize, on the card against the CPU with the same draws, at
+    chip_smoke's tolerances."""
+    import chip_smoke
+
+    errs = chip_smoke.check_reference_net("fused", dtype, distill=True)
+    assert set(errs) >= {"loss", "grad_norm", "cls_logits", "dst_logits",
+                         "teacher_logits_f32", "teacher_logits_bf16"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst", [(112, 96), (64, 96)], ids=["shrink", "grow"])
+def test_teacher_resize_and_forward_of_cuda_tensors(cuda, src, dst):
+    """The teacher's bicubic resize on the card equals the CPU's within 1e-5
+    with TF32 matmuls allowed (it runs in float64); with TF32 off, a narrow
+    RegNetYUpsample's float32 logits agree within 1e-4 of the largest."""
+    from vit_search_torch.models import RegNetYUpsample, resize_images
+    from vit_search_torch.train import make_teacher
+
+    x = torch.randn(4, src, src, 3, generator=torch.Generator().manual_seed(src))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = resize_images(x.to(cuda), dst)
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - resize_images(x, dst)).abs().max()) <= 1e-5
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        kw = dict(target_size=dst, widths=(32, 64), depths=(1, 2), group_width=16,
+                  stem_width=16, num_classes=10, seed=3)
+        want = make_teacher(RegNetYUpsample(**kw, device="cpu"))(x)
+        logits = make_teacher(RegNetYUpsample(**kw))(x.to(cuda)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert float((logits - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_dropout_model_trains_on_the_card(cuda):
+    """A model with dropout and attention dropout takes a step on the card,
+    its keep masks drawn from the step's CUDA generator (attention takes the
+    plain route under attention dropout: no K1/K2 launch)."""
+    from vit_search_torch.models import create_model
+    from vit_search_torch.train import OptimConfig, TrainConfig, make_optimizer, make_train_step
+
+    net = ((0, 64), (1, (64, 2, 32), (64, 128), 1), (1, (64, 2, 32), (64, 128), 1),
+           (2, 64, 10))
+    model = create_model("flexible_vit_patch16_224", network_def=net, img_size=64,
+                         dropout_rate=0.1, attn_dropout_rate=0.1, dtype=torch.bfloat16)
+    step = make_train_step(model, make_optimizer(OptimConfig(), model),
+                           TrainConfig(num_classes=10, mixup_mode="mixup"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8, device=cuda,
+                           generator=gen)
+    before = A.K1.launches
+    metrics = step(images, torch.randint(0, 10, (4,), device=cuda, generator=gen))
+    assert np.isfinite(float(metrics["loss"])) and A.K1.launches == before

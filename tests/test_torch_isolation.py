@@ -28,7 +28,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "vit_search_torch.ops.stats, vit_search_torch.search, "
             "vit_search_torch.tools.attn_lab, vit_search_torch.models.surgery, "
             "vit_search_torch.data.erasing, vit_search_torch.train.checkpoint, "
-            "vit_search_torch.train.state; "
+            "vit_search_torch.train.state, vit_search_torch.models.regnet, "
+            "vit_search_torch.ops.dropout, vit_search_torch.tools.teacher_check; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -16,11 +16,23 @@ reference torch keys; :func:`to_jax` goes back. ``to_jax`` computes what
 An EMA tree is a ``params`` tree: ``from_jax(ema_params, None, net)`` gives
 the port's EMA dict (parameters only, no BN statistics), and ``to_jax`` of
 such a dict gives ``(ema_params, {})``. The same functions carry every
-registered resolution: the tables' lengths follow the arrays.
+registered resolution and every ViT name (the flat ViTs and DeiT nets are
+linear-stem network_defs with no SR block): the tables' lengths follow the
+arrays.
+
+The RegNetY teacher has its own pair, :func:`regnet_from_jax` and
+:func:`regnet_to_jax`, between the JAX ``RegNetYUpsample``'s trees
+(``{"regnet": ...}`` params and BN statistics: ``s<i>_b<j>`` blocks of
+convs ``a``, ``b`` (grouped; HWIO kernels ``(3, 3, I / groups, O)``),
+``c``, ``proj`` and the squeeze-excite's 1x1 convs ``se.fc1``/``se.fc2``
+with bias, a Dense ``head``) and timm's ``regnety_160`` names
+(``s<i+1>.b<j+1>.conv1/conv2/conv3/downsample``, ``head.fc``);
+:func:`load_jax` picks the pair by the model.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -178,8 +190,94 @@ def to_jax(state_dict: Mapping, network_def) -> Tuple[Dict, Dict]:
     return params, batch_stats
 
 
+# --- the RegNetY teacher ------------------------------------------------------
+
+_REGNET_CONVS = (("a", "conv1"), ("b", "conv2"), ("c", "conv3"), ("proj", "downsample"))
+_REGNET_BLOCK = re.compile(r"s(\d+)\.b(\d+)\.")
+
+
+def _regnet_block_names(tree: Mapping):
+    """``(jax name, port prefix)`` of every block of a JAX regnet tree, in order."""
+    names = []
+    for key in tree:
+        m = re.fullmatch(r"s(\d+)_b(\d+)", key)
+        if m:
+            si, bi = int(m.group(1)), int(m.group(2))
+            names.append(((si, bi), key, f"s{si + 1}.b{bi + 1}"))
+    return [(key, prefix) for _, key, prefix in sorted(names)]
+
+
+def regnet_from_jax(params: Mapping, batch_stats: Optional[Mapping]) -> Dict[str, np.ndarray]:
+    """The JAX ``RegNetYUpsample``'s ``params`` and ``batch_stats`` (each
+    ``{"regnet": ...}``) -> the port's teacher state dict (numpy values)."""
+    p = params["regnet"]
+    stats = None if batch_stats is None else batch_stats["regnet"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv_bn(leaf: Mapping, leaf_stats: Optional[Mapping], name: str) -> None:
+        _to_conv(sd, f"{name}.conv", leaf["conv"])
+        _to_norm(sd, f"{name}.bn", leaf["bn"])
+        if leaf_stats is not None:
+            sd[f"{name}.bn.running_mean"] = _np(leaf_stats["bn"]["mean"])
+            sd[f"{name}.bn.running_var"] = _np(leaf_stats["bn"]["var"])
+
+    conv_bn(p["stem"], None if stats is None else stats["stem"], "stem")
+    for key, prefix in _regnet_block_names(p):
+        blk = p[key]
+        for jname, tname in _REGNET_CONVS:
+            if jname in blk:
+                conv_bn(blk[jname], None if stats is None else stats[key][jname],
+                        f"{prefix}.{tname}")
+        _to_conv(sd, f"{prefix}.se.fc1", blk["se"]["fc1"])
+        _to_conv(sd, f"{prefix}.se.fc2", blk["se"]["fc2"])
+    _to_linear(sd, "head.fc", p["head"])
+    return sd
+
+
+def regnet_to_jax(state_dict: Mapping) -> Tuple[Dict, Dict]:
+    """The port's teacher state dict -> JAX ``(params, batch_stats)``, each
+    ``{"regnet": ...}``; a dict without BN statistics gives empty ones."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    params: Dict = {}
+    stats: Dict = {}
+
+    def conv_bn(name: str):
+        leaf = {"conv": _conv(sd, f"{name}.conv"), "bn": _norm(sd, f"{name}.bn")}
+        if f"{name}.bn.running_mean" not in sd:
+            return leaf, None
+        return leaf, {"bn": {"mean": sd[f"{name}.bn.running_mean"],
+                             "var": sd[f"{name}.bn.running_var"]}}
+
+    params["stem"], stem_stats = conv_bn("stem")
+    if stem_stats is not None:
+        stats["stem"] = stem_stats
+    blocks = sorted({(int(m.group(1)), int(m.group(2)))
+                     for m in map(_REGNET_BLOCK.match, sd) if m})
+    for si, bi in blocks:
+        prefix, key = f"s{si}.b{bi}", f"s{si - 1}_b{bi - 1}"
+        blk: Dict = {"se": {"fc1": _conv(sd, f"{prefix}.se.fc1"),
+                            "fc2": _conv(sd, f"{prefix}.se.fc2")}}
+        blk_stats: Dict = {}
+        for jname, tname in _REGNET_CONVS:
+            if f"{prefix}.{tname}.conv.weight" in sd:
+                blk[jname], leaf_stats = conv_bn(f"{prefix}.{tname}")
+                if leaf_stats is not None:
+                    blk_stats[jname] = leaf_stats
+        params[key] = blk
+        if blk_stats:
+            stats[key] = blk_stats
+    params["head"] = _linear(sd, "head.fc")
+    return {"regnet": params}, ({"regnet": stats} if stats else {})
+
+
 def load_jax(model, params: Mapping, batch_stats: Mapping) -> None:
-    """Load JAX trees into a port model, in place (every key must match)."""
-    sd = from_jax(params, batch_stats, model.network_def)
+    """Load JAX trees into a port model (a ViT or the RegNetY teacher), in
+    place (every key must match)."""
+    from .models.regnet import RegNetY
+
+    if isinstance(model, RegNetY):
+        sd = regnet_from_jax(params, batch_stats)
+    else:
+        sd = from_jax(params, batch_stats, model.network_def)
     model.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in sd.items()},
                           strict=True)

@@ -11,13 +11,18 @@ arguments (``(B, 1, width)`` boolean tensors built from per-step keep counts):
 
 Parameters are float32 and named after the reference torch state dict; each
 layer casts its weights to the compute ``dtype`` at the call, as flax's
-``dtype=`` does.
+``dtype=`` does. Dropout sits where the JAX blocks put it: after the MLP's
+GELU and after fc2 (``dropout_rate``), on the attention probabilities
+(``attn_dropout_rate``, which sends attention to the plain route, as the JAX
+``supported`` does) and after the projection (``dropout_rate``). Its keep
+masks come from ``dropout_keeps`` (an iterator, in call order) when given,
+else from ``generator``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +30,7 @@ from torch import nn
 
 from ..ops.attention import attention_qkv_plain, fused_attention_qkv, supported
 from ..ops.drop_path import drop_path
+from ..ops.dropout import dropout
 from ..ops.masked_layer_norm import masked_layer_norm
 
 INIT_STD = 0.02
@@ -71,6 +77,20 @@ def combine_masks(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> Optio
     return torch.logical_and(a.bool(), b.bool())
 
 
+def attention_with_dropout(qkv: torch.Tensor, scale: float, num_heads: int, rate: float,
+                           training: bool, keeps: Optional[Iterator[torch.Tensor]] = None,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The JAX model's XLA attention (vit_search_tpu/models/layers.py:147-159),
+    which it takes under attention dropout: scores and softmax in float32,
+    the ``(B, H, N, N)`` probabilities cast to the compute dtype and dropped
+    out, then ``p @ v`` in the compute dtype."""
+    b, n, w3 = qkv.shape
+    q, k, v = qkv.view(b, n, 3, num_heads, w3 // (3 * num_heads)).unbind(2)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    p = dropout(torch.softmax(s, dim=-1).to(qkv.dtype), rate, training, keeps, generator)
+    return torch.einsum("bhnm,bmhd->bnhd", p, v).reshape(b, n, w3 // 3)
+
+
 class MaskedLayerNorm(nn.Module):
     """Layer norm with masked-channel-corrected statistics (always affine);
     ``route`` is the masked path's route, ``"fused"`` or ``"stats"``."""
@@ -86,23 +106,28 @@ class MaskedLayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> [hidden mask] -> fc2. ``gelu`` is ``"exact"`` (erf)
-    or ``"tanh"`` (the approximation)."""
+    """fc1 -> GELU -> dropout -> [hidden mask] -> fc2 -> dropout. ``gelu``
+    is ``"exact"`` (erf) or ``"tanh"`` (the approximation)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 gelu: str, dtype: torch.dtype, generator: torch.Generator):
+                 gelu: str, dtype: torch.dtype, generator: torch.Generator,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if gelu not in GELU_FORMS:
             raise ValueError(f"gelu must be one of {GELU_FORMS}, got {gelu!r}")
-        self.gelu, self.dtype = gelu, dtype
+        self.gelu, self.dtype, self.dropout_rate = gelu, dtype, dropout_rate
         self.fc1 = make_linear(in_features, hidden_features, generator)
         self.fc2 = make_linear(hidden_features, out_features, generator)
 
-    def forward(self, x: torch.Tensor, hidden_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hidden_mask: Optional[torch.Tensor] = None,
+                dropout_keeps: Optional[Iterator[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = linear(x, self.fc1, self.dtype)
         x = F.gelu(x, approximate="tanh" if self.gelu == "tanh" else "none")
+        x = dropout(x, self.dropout_rate, self.training, dropout_keeps, generator)
         x = apply_mask(x, hidden_mask)
-        return linear(x, self.fc2, self.dtype)
+        x = linear(x, self.fc2, self.dtype)
+        return dropout(x, self.dropout_rate, self.training, dropout_keeps, generator)
 
 
 class Attention(nn.Module):
@@ -114,22 +139,39 @@ class Attention(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, out_features: int,
-                 dtype: torch.dtype, generator: torch.Generator):
+                 dtype: torch.dtype, generator: torch.Generator,
+                 attn_dropout_rate: float = 0.0, proj_dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads, self.head_dim, self.dtype = num_heads, head_dim, dtype
+        self.attn_dropout_rate, self.proj_dropout_rate = attn_dropout_rate, proj_dropout_rate
         width = num_heads * head_dim
         self.qkv = make_linear(dim, 3 * width, generator)
         self.proj = make_linear(width, out_features, generator)
 
-    def forward(self, x: torch.Tensor, width_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, width_mask: Optional[torch.Tensor] = None,
+                dropout_keeps: Optional[Iterator[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         scale = self.head_dim ** -0.5
         qkv = linear(x, self.qkv, self.dtype)
-        if supported(x.shape[1], self.head_dim, 0.0):
+        if supported(x.shape[1], self.head_dim, self.attn_dropout_rate):
             out = fused_attention_qkv(qkv, scale, self.num_heads)
+        elif self.attn_dropout_rate > 0.0:
+            out = attention_with_dropout(qkv, scale, self.num_heads, self.attn_dropout_rate,
+                                         self.training, dropout_keeps, generator)
         else:
             out = attention_qkv_plain(qkv, scale, self.num_heads)
         out = apply_mask(out, width_mask)
-        return linear(out, self.proj, self.dtype)
+        out = linear(out, self.proj, self.dtype)
+        return dropout(out, self.proj_dropout_rate, self.training, dropout_keeps, generator)
+
+    def dropout_shapes(self, batch: int, n: int) -> Tuple[tuple, ...]:
+        """The shapes of the keep masks one training call draws, in order."""
+        shapes = ()
+        if self.attn_dropout_rate > 0.0:
+            shapes += ((batch, self.num_heads, n, n),)
+        if self.proj_dropout_rate > 0.0:
+            shapes += ((batch, n, self.proj.out_features),)
+        return shapes
 
 
 class Block(nn.Module):
@@ -138,18 +180,21 @@ class Block(nn.Module):
     ``(x, embed_mask, layer_mask, masks) -> (x, new_layer_mask)``; ``masks``
     holds optional ``attn``/``mlp``/``layer`` entries. Stochastic depth takes
     its keep draws from ``keeps`` (an iterator, attention branch first) when
-    given, else from ``generator``. ``ln_route`` is both norms' route.
+    given, else from ``generator``; dropout likewise from ``dropout_keeps``.
+    ``ln_route`` is both norms' route.
     """
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_hidden: int,
                  drop_path_rate: float, gelu: str, dtype: torch.dtype,
-                 generator: torch.Generator, ln_route: str = "fused"):
+                 generator: torch.Generator, ln_route: str = "fused",
+                 dropout_rate: float = 0.0, attn_dropout_rate: float = 0.0):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = MaskedLayerNorm(dim, route=ln_route)
-        self.attn = Attention(dim, num_heads, head_dim, dim, dtype, generator)
+        self.attn = Attention(dim, num_heads, head_dim, dim, dtype, generator,
+                              attn_dropout_rate, dropout_rate)
         self.norm2 = MaskedLayerNorm(dim, route=ln_route)
-        self.mlp = Mlp(dim, mlp_hidden, dim, gelu, dtype, generator)
+        self.mlp = Mlp(dim, mlp_hidden, dim, gelu, dtype, generator, dropout_rate)
 
     def _drop_path(self, x: torch.Tensor, keeps: Optional[Iterator[torch.Tensor]],
                    generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -161,11 +206,12 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, embed_mask: Optional[torch.Tensor] = None,
                 layer_mask: Optional[torch.Tensor] = None, masks: Optional[dict] = None,
                 keeps: Optional[Iterator[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_keeps: Optional[Iterator[torch.Tensor]] = None):
         masks = masks or {}
         own_layer_mask = masks.get("layer")
 
-        f = self.attn(self.norm1(x, embed_mask), masks.get("attn"))
+        f = self.attn(self.norm1(x, embed_mask), masks.get("attn"), dropout_keeps, generator)
         f = self._drop_path(f, keeps, generator)
 
         # layer-mask chaining: only blocks with their own layer site consider
@@ -180,8 +226,17 @@ class Block(nn.Module):
             f = apply_mask(f, current)
         x = x + f
 
-        f = self.mlp(self.norm2(x, embed_mask), masks.get("mlp"))
+        f = self.mlp(self.norm2(x, embed_mask), masks.get("mlp"), dropout_keeps, generator)
         f = self._drop_path(f, keeps, generator)
         if current is not None:
             f = apply_mask(f, current)
         return x + f, current
+
+    def dropout_shapes(self, batch: int, n: int) -> Tuple[tuple, ...]:
+        """The shapes of the keep masks one training call draws, in order:
+        the attention's, then the MLP's (after GELU, after fc2)."""
+        mlp = self.mlp
+        shapes = self.attn.dropout_shapes(batch, n)
+        if mlp.dropout_rate > 0.0:
+            shapes += ((batch, n, mlp.fc1.out_features), (batch, n, mlp.fc2.out_features))
+        return shapes

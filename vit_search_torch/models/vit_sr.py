@@ -12,7 +12,7 @@ every slot between the stem and the head, bypass slots included.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ from torch import nn
 
 from ..arch import network_def as nd
 from ..device import resolve_device
+from ..ops.dropout import dropout
 from .layers import Block, MaskedLayerNorm, apply_mask, linear, make_linear, trunc_normal_
 from .patch_embed import PatchConvEmbed, PatchEmbed, conv2d, make_conv
 
@@ -80,8 +81,10 @@ class VisionTransformerSR(nn.Module):
     ``model(x, masks=None, patch_output_type=None)`` with NHWC images
     returns ``cls_logits``, ``(cls_logits, dst_logits)`` (distill token) or,
     when training with ``patch_output``, ``(cls_logits, patch_logits)``
-    with per-token patch logits (``'seq'``). Dropout is not ported: every
-    published recipe trains without it.
+    with per-token patch logits (``'seq'``). ``dropout_rate`` drops after the
+    position embedding and in every block's MLP and projection,
+    ``attn_dropout_rate`` on the attention probabilities (the plain
+    attention route); every published recipe trains with both at 0.
 
     Parameters are float32; ``dtype`` is the compute type. The module is
     built from ``seed`` on the CPU and moved to ``device`` (the CUDA device
@@ -94,7 +97,8 @@ class VisionTransformerSR(nn.Module):
                  num_classes: int = 1000, distill_token: bool = False,
                  patch_output: bool = False, drop_path_rate: float = 0.0,
                  gelu: str = "exact", dtype: torch.dtype = torch.float32,
-                 device=None, seed: int = 0, ln_route: str = "fused"):
+                 device=None, seed: int = 0, ln_route: str = "fused",
+                 dropout_rate: float = 0.0, attn_dropout_rate: float = 0.0):
         super().__init__()
         device = resolve_device(device)
         if patch_output and distill_token:
@@ -109,6 +113,8 @@ class VisionTransformerSR(nn.Module):
         self.num_tokens = 2 if distill_token else 1
         self.patch_output = patch_output
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.img_size, self.patch_size = img_size, patch_size
         gen = torch.Generator().manual_seed(seed)
 
         stem = net[0]
@@ -134,7 +140,7 @@ class VisionTransformerSR(nn.Module):
                 if tdef.exists:
                     blocks.append(Block(embed_dim, tdef.num_heads, tdef.head_dim,
                                         tdef.ffn_hidden, float(dpr[d]), gelu, dtype, gen,
-                                        ln_route))
+                                        ln_route, dropout_rate, attn_dropout_rate))
                     d += 1
                 else:
                     blocks.append(Bypass())
@@ -159,11 +165,14 @@ class VisionTransformerSR(nn.Module):
 
     def forward_features(self, x: torch.Tensor, masks: Optional[Dict], want_patches: bool,
                          drop_keeps: Optional[Iterable[torch.Tensor]],
-                         generator: Optional[torch.Generator]):
+                         generator: Optional[torch.Generator],
+                         dropout_keeps: Optional[Iterable[torch.Tensor]] = None):
         t = self.num_tokens
         x = self.patch_embed(x)
         tokens = self.tokens.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([tokens, x], dim=1) + self.pos_embed.to(x.dtype)
+        dropout_keeps = None if dropout_keeps is None else iter(dropout_keeps)
+        x = dropout(x, self.dropout_rate, self.training, dropout_keeps, generator)
 
         embed_mask = layer_mask = None
         if masks is not None and masks.get("embed") is not None:
@@ -177,7 +186,7 @@ class VisionTransformerSR(nn.Module):
                 layer_mask = None
             elif isinstance(block, Block):
                 x, layer_mask = block(x, embed_mask, layer_mask, slot_masks.get(slot),
-                                      keeps, generator)
+                                      keeps, generator, dropout_keeps)
             else:
                 sr_mask = (slot_masks.get(slot) or {}).get("embed")
                 x, embed_mask = block(x, embed_mask, sr_mask)
@@ -191,13 +200,15 @@ class VisionTransformerSR(nn.Module):
     def forward(self, x: torch.Tensor, masks: Optional[Dict] = None,
                 patch_output_type: Optional[str] = None,
                 drop_keeps: Optional[Iterable[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_keeps: Optional[Iterable[torch.Tensor]] = None):
         """``drop_keeps``: stochastic-depth keep draws in call order (each
-        block's attention branch, then its MLP branch); ``None`` draws them
-        from ``generator``."""
+        block's attention branch, then its MLP branch); ``dropout_keeps``:
+        dropout keep masks in call order (shapes: :meth:`dropout_shapes`);
+        ``None`` draws either from ``generator``."""
         want_patches = self.patch_output and self.training
         token_features, patch_features = self.forward_features(
-            x, masks, want_patches, drop_keeps, generator)
+            x, masks, want_patches, drop_keeps, generator, dropout_keeps)
         cls_pred = linear(token_features[:, 0], self.cls_head, self.dtype)
         if self.patch_output:
             if not want_patches:
@@ -208,3 +219,19 @@ class VisionTransformerSR(nn.Module):
         if self.num_tokens == 2:
             return cls_pred, linear(token_features[:, 1], self.dst_head, self.dtype)
         return cls_pred
+
+    def dropout_shapes(self, batch: int) -> List[tuple]:
+        """The shapes of the dropout keep masks one training forward draws,
+        in call order: after the position embedding, then each block's (see
+        :meth:`Block.dropout_shapes`). Empty when both rates are 0."""
+        grid = self.img_size // self.patch_size
+        width = self.pos_embed.shape[-1]
+        shapes = []
+        if self.dropout_rate > 0.0:
+            shapes.append((batch, grid * grid + self.num_tokens, width))
+        for block in self.blocks:
+            if isinstance(block, Block):
+                shapes += block.dropout_shapes(batch, grid * grid + self.num_tokens)
+            elif isinstance(block, SpatialReductionPatchEmbed):
+                grid //= block.reduction
+        return shapes

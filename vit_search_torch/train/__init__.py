@@ -4,8 +4,8 @@ steps, the EMA and checkpoints."""
 from .checkpoint import (CheckpointManager, load_finetune, restore_raw,
                          unpack_checkpoint_archive)
 from .engine import (StepDraws, TrainConfig, TrainStep, make_eval_step,
-                     make_per_example_correct_step, make_train_step, normalize)
-from .losses import (cross_entropy, label_smoothing_cross_entropy,
+                     make_per_example_correct_step, make_teacher, make_train_step, normalize)
+from .losses import (cross_entropy, distillation_loss, label_smoothing_cross_entropy,
                      soft_target_cross_entropy, top_k_correct)
 from .optim import (OptimConfig, clip_by_global_norm_, lr_schedule, make_optimizer,
                     timm_epoch_lrs, weight_decay_groups)
@@ -20,6 +20,7 @@ __all__ = [
     "TrainStep",
     "clip_by_global_norm_",
     "cross_entropy",
+    "distillation_loss",
     "ema_update",
     "init_ema",
     "label_smoothing_cross_entropy",
@@ -28,6 +29,7 @@ __all__ = [
     "make_eval_step",
     "make_optimizer",
     "make_per_example_correct_step",
+    "make_teacher",
     "make_train_step",
     "normalize",
     "restore_raw",

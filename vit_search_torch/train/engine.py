@@ -3,18 +3,23 @@
 Port of ``make_train_step`` (vit_search_tpu/train/engine.py:76-186):
 
   raw batch -> normalize uint8 -> random erasing -> unpack keep counts
-  -> build masks -> token mixup -> masked forward (patch_output_type="seq")
-  -> loss (soft-target CE on the cls and patch heads under token mixup,
-  else label-smoothing CE) -> backward -> global norm -> clip -> AdamW
-  -> EMA -> {loss, grad_norm, lr}
+  -> build masks -> token mixup or mixup/CutMix -> teacher forward (no
+  gradient) -> masked forward (patch_output_type="seq") -> loss -> backward
+  -> global norm -> clip -> AdamW -> EMA -> {loss, grad_norm, lr}
+
+The loss is the JAX package's (engine.py:108-160): under token mixup the
+soft-target CE on the cls and patch heads; under mixup/CutMix the
+soft-target CE on the cls head; else label-smoothing CE (plain CE at
+smoothing 0). Outside token mixup a teacher adds knowledge distillation on
+the distill head (the cls head when the model has none):
+``loss * (1 - alpha) + kd * alpha``, the teacher seeing the mixed images.
 
 ``grad_norm`` is measured before clipping, as ``optax.global_norm(grads)``
-is. Host draws (token mixup, erasing boxes) come from a
-``numpy.random.Generator`` and device draws (stochastic depth, erasing
-noise) from a ``torch.Generator`` on the model's device, both seeded by
-``seed``; a :class:`StepDraws` injects any of them, so tests can feed in the
-JAX package's draws. Mixup/CutMix (``mixup_mode="mixup"``) and knowledge
-distillation wait for a later slice and raise ``NotImplementedError``.
+is. Host draws (token mixup, mixup/CutMix, erasing boxes) come from a
+``numpy.random.Generator`` and device draws (stochastic depth, dropout,
+erasing noise) from a ``torch.Generator`` on the model's device, both seeded
+by ``seed``; a :class:`StepDraws` injects any of them, so tests can feed in
+the JAX package's draws.
 
 ``make_eval_step`` and ``make_per_example_correct_step`` (engine.py:189-252)
 run the model in eval mode under ``torch.no_grad()``, uint8 batches
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from ..data.erasing import ErasingDraws, random_erasing
-from ..data.mixup import TokenMixDraws, switch_token_mix
+from ..data.mixup import MixupDraws, TokenMixDraws, mixup_cutmix, switch_token_mix
 from ..device import resolve_device
 from ..models.supernet import build_arch_masks
 from . import losses
@@ -39,12 +44,26 @@ from .optim import clip_by_global_norm_
 from .state import TrainState, ema_update, init_ema
 
 
+MIXUP_MODES = ("none", "mixup", "token")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     num_classes: int = 1000
     smoothing: float = 0.1
-    mixup_mode: str = "none"        # 'none' | 'token'; 'mixup' not ported yet
+    # 'none' | 'mixup' (timm Mixup/CutMix) | 'token' (SwitchTokenMix)
+    mixup_mode: str = "none"
+    mixup_alpha: float = 0.8
+    cutmix_alpha: float = 1.0
+    mixup_switch_prob: float = 0.5
+    mixup_prob: float = 1.0
+    mixup_elem_mode: str = "batch"  # timm Mixup mode: batch | elem | pair
+    cutmix_minmax: Optional[tuple] = None
     patch_len: int = 4              # token-mixup grid (56px patches at 224px)
+    # knowledge distillation (with a teacher)
+    distill_alpha: float = 0.5
+    hard_distill: bool = True
+    distill_temperature: float = 3.0
     ema_decay: Optional[float] = None
     mean: tuple = (0.485, 0.456, 0.406)
     std: tuple = (0.229, 0.224, 0.225)
@@ -60,6 +79,9 @@ class StepDraws:
     mix: Optional[TokenMixDraws] = None
     drop_keeps: Optional[List[torch.Tensor]] = None  # (B,) keeps in call order
     erasing: Optional[ErasingDraws] = None
+    mixup: Optional[MixupDraws] = None
+    # dropout keep masks in call order (shapes: model.dropout_shapes(batch))
+    dropout_keeps: Optional[List[torch.Tensor]] = None
 
 
 def normalize(images: torch.Tensor, config: TrainConfig) -> torch.Tensor:
@@ -88,6 +110,20 @@ def check_on(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}; the step runs on {device}")
 
 
+def make_teacher(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The KD teacher as the step calls it: ``teacher(images) -> logits``,
+    ``model`` in eval mode under ``torch.no_grad()``. Build ``model`` in the
+    student's compute dtype (``create_model("regnety_160_upsample",
+    dtype=...)``); loading its weights from a checkpoint is the CLI's."""
+    model.eval()
+
+    @torch.no_grad()
+    def teacher(images: torch.Tensor) -> torch.Tensor:
+        return model(images)
+
+    return teacher
+
+
 class TrainStep:
     """``step(images, labels, counts, draws=None) -> {loss, grad_norm, lr}``.
 
@@ -96,7 +132,9 @@ class TrainStep:
     dense net. ``loss`` and ``grad_norm`` stay on the device. With
     ``config.ema_decay`` the step keeps an EMA of the parameters in
     ``state.ema_params``; the optimizer's ``clip_grad`` (``make_optimizer``)
-    clips the gradients by their global norm.
+    clips the gradients by their global norm. ``teacher`` (see
+    :func:`make_teacher`) maps the mixed images to logits for knowledge
+    distillation.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -104,16 +142,11 @@ class TrainStep:
                  counts_unpack: Optional[Callable] = None, seed: int = 0, device=None,
                  teacher: Optional[Callable] = None):
         device = model_device(model, device)
-        if config.mixup_mode not in ("none", "token"):
-            raise NotImplementedError(
-                f"mixup_mode {config.mixup_mode!r} is not ported yet: timm Mixup/CutMix "
-                f"(vit_search_tpu/data/mixup.py::mixup_cutmix) waits for a later slice")
-        if teacher is not None:
-            raise NotImplementedError(
-                "knowledge distillation is not ported yet: the RegNet teacher and the "
-                "distillation loss (vit_search_tpu/train/engine.py:62-65,123-160) wait "
-                "for a later slice")
+        if config.mixup_mode not in MIXUP_MODES:
+            raise ValueError(f"mixup_mode must be one of {MIXUP_MODES}, "
+                             f"got {config.mixup_mode!r}")
         self.model, self.optimizer, self.config = model, optimizer, config
+        self.teacher = teacher
         self.schedule, self.counts_unpack = schedule, counts_unpack
         self.named_params = dict(model.named_parameters())
         self.state = TrainState(ema_params=init_ema(self.named_params)
@@ -141,19 +174,36 @@ class TrainStep:
             images, targets, patch_targets = switch_token_mix(
                 images, labels, config.patch_len, config.num_classes, config.smoothing,
                 draws=draws.mix, rng=self.rng)
+        elif config.mixup_mode == "mixup":
+            images, targets = mixup_cutmix(
+                images, labels, config.num_classes, config.mixup_alpha, config.cutmix_alpha,
+                config.mixup_switch_prob, config.smoothing, config.mixup_prob,
+                mode=config.mixup_elem_mode, cutmix_minmax=config.cutmix_minmax,
+                draws=draws.mixup, rng=self.rng)
+        teacher_logits = None
+        if self.teacher is not None and config.mixup_mode != "token":
+            with torch.no_grad():
+                teacher_logits = self.teacher(images)
         outputs = model(images, masks, patch_output_type="seq",
-                        drop_keeps=draws.drop_keeps, generator=self.generator)
+                        drop_keeps=draws.drop_keeps, generator=self.generator,
+                        dropout_keeps=draws.dropout_keeps)
 
         if config.mixup_mode == "token":
             cls_pred, patch_pred = outputs
             loss = (losses.soft_target_cross_entropy(cls_pred, targets)
                     + losses.soft_target_cross_entropy(patch_pred, patch_targets))
         else:
-            cls_pred = outputs[0] if isinstance(outputs, tuple) else outputs
-            if config.smoothing > 0:
+            cls_pred, dst_pred = outputs if isinstance(outputs, tuple) else (outputs, outputs)
+            if config.mixup_mode == "mixup":
+                loss = losses.soft_target_cross_entropy(cls_pred, targets)
+            elif config.smoothing > 0:
                 loss = losses.label_smoothing_cross_entropy(cls_pred, labels, config.smoothing)
             else:
                 loss = losses.cross_entropy(cls_pred, labels)
+            if teacher_logits is not None:
+                kd = losses.distillation_loss(dst_pred, teacher_logits, config.hard_distill,
+                                              config.distill_temperature)
+                loss = loss * (1.0 - config.distill_alpha) + kd * config.distill_alpha
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -205,8 +255,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     counts_unpack: Optional[Callable] = None, seed: int = 0,
                     device=None, teacher: Optional[Callable] = None) -> TrainStep:
     """Build the train step; it runs on the CUDA device unless
-    ``device="cpu"`` is asked for, and ``model`` must already be there.
-    ``teacher`` (knowledge distillation) is not ported yet and raises."""
+    ``device="cpu"`` is asked for, and ``model`` must already be there (and
+    ``teacher``'s model, :func:`make_teacher`, with it)."""
     return TrainStep(model, optimizer, config, schedule, counts_unpack, seed, device, teacher)
 
 

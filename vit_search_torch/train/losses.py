@@ -1,7 +1,6 @@
 """Training losses (log-softmax in float32) and top-k correct counts.
 
-Port of vit_search_tpu/train/losses.py (the distillation loss waits for the
-slice that ports the teacher).
+Port of vit_search_tpu/train/losses.py, the distillation loss included.
 """
 
 from __future__ import annotations
@@ -32,6 +31,20 @@ def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> to
     """Mean of ``-sum(target * log_softmax(logits))`` over all leading axes;
     takes ``(B, K)`` class targets and ``(B, N, K)`` patch targets."""
     return (-(targets.float() * _log_softmax(logits)).sum(dim=-1)).mean()
+
+
+def distillation_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                      hard: bool = True, temperature: float = 3.0) -> torch.Tensor:
+    """Knowledge distillation (reference engine.py:25-54). Hard: CE against
+    the teacher's argmax. Soft: ``-sum(softmax(t / T) * log_softmax(s / T))
+    * T^2``, a cross-entropy as the JAX package computes it (it differs from
+    ``F.kl_div`` by the teacher's entropy)."""
+    if hard:
+        return cross_entropy(student_logits, teacher_logits.argmax(-1))
+    t = temperature
+    teacher_probs = torch.softmax(teacher_logits.float() / t, dim=-1)
+    logp = _log_softmax(student_logits / t)
+    return (-teacher_probs * logp).sum(-1).mean() * (t * t)
 
 
 def top_k_correct(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)) -> dict:
