@@ -87,6 +87,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    smoothing 0.1, drop_path 0.1, EMA 0.99996: K1/K2 12 launches per step at
    (198, 6, 64), K3-K5 none; the teacher's forward timed apart by CUDA
    events, its share of the step reported;
+   loader (``super_net/tiny.sh``'s input pipeline): a synthetic image folder
+   made by the port's ``make_synthfolder`` in a temporary directory (1000
+   classes, 4 images per class at 256 px, 1 per class held out as the
+   sub-val by ``build_subsets``); the port's ``DataLoader`` alone on the
+   process backend with one worker per host core (``TrainTransform`` at
+   224 px, RandAugment ``rand-m9-mstd0.5-inc1``, batch 512), timed over an
+   epoch; the train phase's step fed from it through the device feed
+   (``data.prefetch_to_device``), K1/K2 18 and K3/K4 39 launches per step;
+   one step, its batch's wait included, under the profiler: the device's
+   idle share; the host's ``os.cpu_count()`` and scheduler affinity;
+   cli: ``vit_search_torch.cli.train.main`` in-process with
+   ``super_net/tiny.sh``'s own arguments read from the script, only the data
+   path, batch 512, 2 epochs of 3 steps, the output directory and the loader
+   workers set here: epoch 0, a SIGTERM once its log line is written (the
+   run checkpoints in epoch 1 and returns), ``--resume auto`` for the rest
+   of epoch 1, then ``--eval`` from the last checkpoint: every loss finite,
+   the preemption checkpoint's metadata, the resumed run ending at epoch 1,
+   acc1 in [0, 100], and K1/K2 18 and K3/K4 39 launches per train step plus
+   K1 18 and K3 39 per eval forward;
 7. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
    the default: K1 and K3): the same supernet scores an evolutionary
    population (20 random candidates, then one generation of 8 mutations and
@@ -119,8 +138,10 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -214,6 +235,13 @@ DISTILL_MODEL = "deit_small_distill_patch16_224"
 TEACHER_MODEL = "regnety_160_upsample"
 PER_DISTILL_STEP = per_pass(attention_qkv_fwd=12, attention_qkv_bwd=12)
 DISTILL_SHAPES = (("DeiT-S", BATCH, 198, 6, 64),)
+# loader and cli: super_net/tiny.sh on a synthetic image folder of 1000
+# classes (the heads keep their published width), 4 train images per class
+# at 256 px, 1 per class held out as the sub-val
+SUPERNET_SCRIPT = "scripts/vit-sr-nas/super_net/tiny.sh"
+FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_HOLDOUT, FOLDER_SIZE = 1000, 4, 1, 256
+LOADER_AUGMENT = "rand-m9-mstd0.5-inc1"   # the CLI's --aa default, which tiny.sh keeps
+CLI_EPOCHS, CLI_STEPS = 2, 3
 # the small net's distill check: dropout rate, and the narrow teacher behind
 # a 112 -> 96 px resize
 REF_DROPOUT = 0.1
@@ -1154,10 +1182,12 @@ def run_steps(what: str, step, images, labels, counts, steps: int, warmup: int,
                               "by_class_ms": classes, "top_kernels": rows}}
 
 
-def train(steps: int, warmup: int):
+def supernet_step():
+    """The train phase's step: the full-width ``SUPERNET_SR_TINY_MH``
+    supernet, token mixup, drop_path 0.2, tanh GELU, bf16, AdamW; and its
+    keep-count sampler."""
     import gc
 
-    import numpy as np
     import torch
     from vit_search_torch.arch import presets, spaces
     from vit_search_torch.models import SupernetSchedules, create_model
@@ -1179,6 +1209,13 @@ def train(steps: int, warmup: int):
     step = make_train_step(model, make_optimizer(ocfg, model),
                            TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4),
                            schedule=lr_schedule(ocfg), counts_unpack=sched.unpack, seed=0)
+    return step, sched
+
+
+def train(steps: int, warmup: int):
+    import numpy as np
+
+    step, sched = supernet_step()
     images, labels = synthetic_batch(BATCH, 224, 0)
     rng = np.random.default_rng(0)
     return run_steps("train", step, images, labels, lambda: sched.sample_packed(rng, BATCH),
@@ -1343,16 +1380,24 @@ def finetune(steps: int, warmup: int):
     return out
 
 
-def script_network_def(path: str):
-    """The ``--network-def`` literal of a training script, parsed by the
-    port's ``parse_network_def``."""
+def script_args(path: str) -> list:
+    """A training script's arguments, from the one after
+    ``-m vit_search_tpu.cli.<name>`` on."""
     import re
     import shlex
 
+    with open(os.path.join(HERE, path)) as f:
+        words = shlex.split(re.sub(r"\\\n", " ", f.read()), comments=True)
+    module = next(w for w in words if w.startswith("vit_search_tpu.cli."))
+    return words[words.index(module) + 1:]
+
+
+def script_network_def(path: str):
+    """The ``--network-def`` literal of a training script, parsed by the
+    port's ``parse_network_def``."""
     from vit_search_torch.arch import parse_network_def
 
-    with open(os.path.join(HERE, path)) as f:
-        args = shlex.split(re.sub(r"\\\n", " ", f.read()), comments=True)
+    args = script_args(path)
     return parse_network_def(args[args.index("--network-def") + 1])
 
 
@@ -1456,6 +1501,206 @@ def distill(steps: int, warmup: int):
         + f" ({busy_ms:.1f} ms device-busy)")
     return out
 
+
+
+def host_cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def make_folder(root: str) -> float:
+    """The synthetic image folder of the loader and cli phases
+    (``make_synthfolder``, one process per host core) with its holdout split
+    (``build_subsets``); returns the seconds it took."""
+    import contextlib
+
+    from vit_search_torch.data import build_subsets
+    from vit_search_torch.tools.make_synthfolder import generate
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        generate(root, num_classes=FOLDER_CLASSES, train_per_class=FOLDER_TRAIN,
+                 val_per_class=0, size=FOLDER_SIZE, seed=0, workers=host_cores())
+    build_subsets(root, per_class=FOLDER_HOLDOUT, seed=0)
+    return time.perf_counter() - t0
+
+
+def loader(folder: str):
+    """super_net/tiny.sh's input pipeline on the synthetic folder's
+    sub-train split: ``TrainTransform`` at 224 px with RandAugment
+    ``rand-m9-mstd0.5-inc1``, batch ``BATCH``, the process backend with one
+    worker per host core. A job is a whole batch, so an epoch of 5 batches
+    decodes them side by side and every rate here is a cold epoch's. First
+    the loader alone over one epoch (and, for comparison, on the thread
+    backend with as many threads); then an epoch of the train phase's step
+    fed from it through the device feed, timed from the epoch's start
+    (K1-K4 launches exact); then one step, its batch's wait included, under
+    the profiler: the device's idle share while the loader feeds it.
+    ``tools/loader_check.py`` measures the loader at small batches, where
+    the workers' rate is steady."""
+    import numpy as np
+    import torch
+    from vit_search_torch import data
+    from vit_search_torch.ops import kernels
+
+    cores = host_cores()
+    ds = data.build_dataset(True, data_set="IMNET", data_path=folder, use_holdout=True,
+                            transform=data.TrainTransform(size=224,
+                                                          rand_augment=LOADER_AUGMENT))
+
+    def epoch_alone(backend: str, epoch: int):
+        """One epoch of the loader alone: (images, seconds, first batch's seconds)."""
+        pipe = data.DataLoader(ds, data.ShardedSampler(len(ds), 1, 0), BATCH,
+                               num_workers=cores, drop_last=True, seed=0,
+                               worker_backend=backend)
+        pipe.set_epoch(epoch)
+        t0 = time.perf_counter()
+        first_s, seen = None, 0
+        for images, labels in pipe:
+            if images.shape != (BATCH, 224, 224, 3) or images.dtype != np.uint8:
+                raise AssertionError(f"loader: a batch of {images.shape} {images.dtype}")
+            first_s = first_s or time.perf_counter() - t0
+            seen += len(labels)
+        return seen, time.perf_counter() - t0, first_s, pipe
+
+    seen, loader_s, first_s, pipe = epoch_alone("process", 0)
+    thread_seen, thread_s, _, _ = epoch_alone("thread", 0)
+    out = {"host_cpu_count": os.cpu_count(), "host_cores": cores, "images": len(ds),
+           "classes": ds.num_classes, "batches_per_epoch": len(pipe),
+           "loader_imgs_per_s": seen / loader_s, "loader_first_batch_s": first_s,
+           "loader_thread_backend_imgs_per_s": thread_seen / thread_s}
+    log(f"loader alone: {seen} images in {loader_s:.2f} s on {cores} worker processes "
+        f"(first batch {first_s:.2f} s); {thread_s:.2f} s on {cores} threads")
+
+    # an epoch of the train phase's step fed by the loader, timed from the
+    # start of the epoch (the workers' start and first batch included)
+    step, sched = supernet_step()
+    rng = np.random.default_rng(0)
+    pipe.set_epoch(1)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [step(images, labels, sched.sample_packed(rng, BATCH))
+               for images, labels in data.prefetch_to_device(pipe, "cuda")]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"loader-fed steps: non-finite loss: {losses}")
+    check_launches(launches, PER_STEP, len(metrics), "loader-fed steps")
+
+    # the profiled step: the third of a new epoch, so the workers are up
+    pipe.set_epoch(2)
+    feed = data.prefetch_to_device(pipe, "cuda")
+    for _ in range(2):
+        step(*next(feed), sched.sample_packed(rng, BATCH))
+    busy_ms, wall_ms, classes, rows = profile_kernels(
+        lambda: step(*next(feed), sched.sample_packed(rng, BATCH)))
+    feed.close()
+    out.update(steps=len(metrics), step_imgs_per_s=BATCH * len(metrics) / elapsed,
+               step_ms=1e3 * elapsed / len(metrics), losses=losses, launches=launches,
+               profiled_step={"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+                              "idle_share": 1.0 - busy_ms / wall_ms, "by_class_ms": classes,
+                              "top_kernels": rows})
+    return out
+
+
+def with_flags(argv: list, flags: dict) -> list:
+    """``argv`` with each flag of ``flags`` set to its value (replaced where
+    present, else added)."""
+    argv = list(argv)
+    for flag, value in flags.items():
+        if flag in argv:
+            argv[argv.index(flag) + 1] = value
+        else:
+            argv += [flag, value]
+    return argv
+
+
+def cli(folder: str, root: str):
+    """``vit_search_torch.cli.train.main`` in-process on the card with
+    super_net/tiny.sh's own arguments, only the data path, batch ``BATCH``,
+    ``CLI_EPOCHS`` epochs of ``CLI_STEPS`` steps, the output directory and
+    one loader worker per host core set here: epoch 0, then a SIGTERM once
+    its log line is written (the run checkpoints in epoch 1 and returns),
+    ``--resume auto`` for the rest of epoch 1, then ``--eval`` from the last
+    checkpoint. K1-K4 launches are exact: 18/18/39/39 per train step, K1 18
+    and K3 39 per eval forward."""
+    import contextlib
+    import signal
+    import threading
+
+    from vit_search_torch.cli import train as train_cli
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.train import restore_raw
+
+    out_dir = os.path.join(root, "cli")
+    argv = with_flags(script_args(SUPERNET_SCRIPT), {
+        "--data-path": folder, "--batch-size": str(BATCH), "--epochs": str(CLI_EPOCHS),
+        "--max-steps-per-epoch": str(CLI_STEPS), "--output_dir": out_dir,
+        "--num_workers": str(host_cores())})
+    parser = train_cli.get_args_parser()
+    log_path = os.path.join(out_dir, "log.txt")
+    armed = threading.Event()
+    armed.set()
+
+    def preempt():
+        deadline = time.time() + 600
+        while armed.is_set() and time.time() < deadline:
+            if os.path.exists(log_path) and os.path.getsize(log_path):
+                if armed.is_set():
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.01)
+
+    def run(extra):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):   # the CLI's console log
+            result = train_cli.main(parser.parse_args(argv + extra))
+        return result, time.perf_counter() - t0
+
+    kernels.reset_launches()
+    killer = threading.Thread(target=preempt, daemon=True)
+    killer.start()
+    try:
+        first, first_s = run([])
+    finally:
+        armed.clear()
+        killer.join(timeout=5)
+    if not first.get("preempted") or first["epoch"] != 1:
+        raise AssertionError(f"cli: the SIGTERM did not preempt epoch 1: {first}")
+    meta = restore_raw(os.path.join(out_dir, "checkpoints", "checkpoint"))["metadata"]
+    if (meta.get("preempted_step"), meta.get("steps_per_epoch"), meta.get("epoch")) != (
+            CLI_STEPS + first["step"], CLI_STEPS, 0):
+        raise AssertionError(f"cli: preemption checkpoint metadata {meta}")
+    resumed, resumed_s = run(["--resume", "auto"])
+    evaluated, eval_s = run(["--resume", "auto", "--eval"])
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+
+    with open(log_path) as f:
+        lines = [json.loads(line) for line in f]
+    if [line["epoch"] for line in lines] != list(range(CLI_EPOCHS)) or resumed["epoch"] != 1:
+        raise AssertionError(f"cli: logged epochs {[line['epoch'] for line in lines]}, "
+                             f"the resumed run ended at {resumed.get('epoch')}")
+    losses = [line["train_loss"] for line in lines]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cli: non-finite loss: {losses}")
+    acc1 = evaluated["eval"]["acc1"]
+    if not 0.0 <= acc1 <= 100.0:
+        raise AssertionError(f"cli: eval acc1 {acc1}")
+    val_bs = parser.parse_args(argv).val_bs
+    forwards = 3 * math.ceil(FOLDER_CLASSES * FOLDER_HOLDOUT / val_bs)  # epochs 0, 1; --eval
+    train_steps = CLI_EPOCHS * CLI_STEPS
+    want = {name: PER_STEP[name] * train_steps + PER_FORWARD["fused"][name] * forwards
+            for name in KERNEL_NAMES}
+    if launches != want:
+        raise AssertionError(f"cli: launches {launches}, expected {want} ({train_steps} "
+                             f"train steps, {forwards} eval forwards)")
+    return {"argv": argv, "train_steps": train_steps, "eval_forwards": forwards,
+            "launches": launches, "preempted_at": first, "preemption_metadata": meta,
+            "epochs": lines, "epoch_imgs_per_s": [line["train_imgs_per_sec"] for line in lines],
+            "eval": evaluated["eval"], "seconds": {"first": first_s, "resumed": resumed_s,
+                                                   "eval": eval_s}}
 
 def sub_val_loader():
     """Synthetic sub-val batches of uint8 images on the card, the same at
@@ -1714,8 +1959,39 @@ def main(argv=None) -> int:
           f"{ds['batch']}) peak memory {ds['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
           f"on {card}; teacher forward {ds['teacher_ms']:.1f} ms per step "
           f"({100 * ds['teacher_share']:.1f}% of the step)", flush=True)
+    # the host pipeline and the training CLI on a synthetic image folder
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        folder = os.path.join(scratch, "synthfolder")
+        t0 = time.perf_counter()
+        report["folder_s"] = make_folder(folder)
+        report["loader"] = ld = loader(folder)
+        ld["seconds"] = time.perf_counter() - t0
+        prof = ld["profiled_step"]
+        print(f"loader: {ld['loader_imgs_per_s']:.1f} imgs/s alone over an epoch of "
+              f"{ld['batches_per_epoch']} batches (process backend, {ld['host_cores']} "
+              f"workers, the first batch after {ld['loader_first_batch_s']:.2f} s; "
+              f"os.cpu_count() {ld['host_cpu_count']}, sched_getaffinity "
+              f"{ld['host_cores']}; thread backend "
+              f"{ld['loader_thread_backend_imgs_per_s']:.1f}); loader-fed train step "
+              f"{ld['step_imgs_per_s']:.1f} imgs/s over an epoch of {ld['steps']} steps "
+              f"({ld['step_ms']:.1f} ms/step, batch {BATCH}) beside "
+              f"{tr['imgs_per_s']:.1f} from device batches; profiled step "
+              f"{prof['device_busy_ms']:.1f} ms busy of {prof['wall_ms']:.1f} ms "
+              f"({100 * prof['idle_share']:.1f}% idle) on {card}", flush=True)
+        t0 = time.perf_counter()
+        report["cli"] = cl = cli(folder, scratch)
+        cl["wall_s"] = time.perf_counter() - t0
+        print(f"cli: super_net/tiny.sh, {cl['train_steps']} steps over {CLI_EPOCHS} epochs "
+              f"(SIGTERM in epoch 1, then --resume auto), epoch imgs/s "
+              + " / ".join(f"{v:.1f}" for v in cl["epoch_imgs_per_s"])
+              + f", --eval acc1 {cl['eval']['acc1']:.3f} on {card}", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s, "
-        f"mixup phase {mx['seconds']:.1f} s, distill phase {ds['seconds']:.1f} s")
+        f"mixup phase {mx['seconds']:.1f} s, distill phase {ds['seconds']:.1f} s, "
+        f"folder {report['folder_s']:.1f} s, loader phase {ld['seconds']:.1f} s, "
+        f"cli phase {cl['wall_s']:.1f} s")
     # the search on each masked-LN route, one model on the card at a time;
     # one chunk's logits must agree across the routes
     searches, logits = {}, {}

@@ -71,9 +71,9 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path):
 
     # the next step from the restored state is the saved run's next step
     draws = StepDraws(drop_keeps=[torch.ones(BATCH, dtype=torch.bool)] * 12)
-    fresh.rng, saved.rng = np.random.default_rng(5), np.random.default_rng(5)
-    fresh.generator.manual_seed(5)
-    saved.generator.manual_seed(5)
+    # each step's draws come from (the run's seed, the restored step): the
+    # seed is the caller's, as the JAX step's key is, not the checkpoint's
+    fresh.seed = saved.seed
     images, labels = _batch(9)
     m_fresh, m_saved = fresh(images, labels, draws=draws), saved(images, labels, draws=draws)
     assert float(m_fresh["loss"]) == float(m_saved["loss"])

@@ -8,6 +8,8 @@ machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -959,3 +961,91 @@ def test_dropout_model_trains_on_the_card(cuda):
     before = A.K1.launches
     metrics = step(images, torch.randint(0, 10, (4,), device=cuda, generator=gen))
     assert np.isfinite(float(metrics["loss"])) and A.K1.launches == before
+
+
+@pytest.mark.gpu
+def test_device_feed_delivers_the_loader_bytes(cuda):
+    """The feed's pinned, side-stream copies hand the step exactly the bytes
+    the loader produced, also while the consuming stream is busy (each
+    batch is read after a spin on the card, so later copies are in flight)."""
+    from vit_search_torch import data
+
+    ds = data.SyntheticDataset(num_classes=4, length=12 * 32, img_size=64,
+                               transform=data.TrainTransform(size=64))
+    loader = data.DataLoader(ds, data.ShardedSampler(len(ds), 1, 0), 32, num_workers=2)
+    batches = list(loader)
+    fed = 0
+    for (images, labels), (want_images, want_labels) in zip(
+            data.prefetch_to_device(iter(batches), cuda, depth=3), batches):
+        torch.cuda._sleep(2_000_000)
+        assert images.device.type == labels.device.type == "cuda"
+        assert images.dtype == torch.uint8 and labels.dtype == torch.int64
+        assert torch.equal(images.cpu(), torch.from_numpy(want_images))
+        assert torch.equal(labels.cpu(), torch.from_numpy(want_labels.astype(np.int64)))
+        fed += 1
+    assert fed == len(batches) == 12
+
+
+# a supernet of three stages at 112 px (chip_smoke's reference net), 10 classes
+CLI_NET = ((4, 64),
+           (1, (64, 4, 16), (64, 128), 1), (1, (64, 4, 16), (64, 128), 1),
+           (3, 64, 128),
+           (1, (128, 4, 32), (128, 256), 1),
+           (3, 128, 256),
+           (1, (256, 4, 64), (256, 512), 1),
+           (2, 256, 10))
+CLI_SPACE = [np.array([64, 48]),
+             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": None},
+             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": np.array([64, 0])},
+             np.array([128, 96]),
+             {"attn": np.array([128, 64]), "mlp": np.array([256, 192]), "layer": None},
+             np.array([256, 192]),
+             {"attn": np.array([256, 128]), "mlp": np.array([512, 256]), "layer": None},
+             None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cli_two_steps_on_the_card_match_the_cpu(cuda, bf16, tmp_path, monkeypatch):
+    """``vit_search_torch.cli.train`` for two supernet steps (token mixup,
+    erasing with a constant fill, EMA, eval) on the card against the same
+    run with ``--device cpu``: the host draws are the same on both devices
+    and the device draws are off (no drop-path, no dropout). float32 with
+    TF32 off: the train and eval losses within 1e-4, parameters within 1e-4
+    (floor 1e-6); bfloat16: the losses within ``REF_NET_BF16_TOL``."""
+    import math
+
+    import chip_smoke
+    from vit_search_torch.arch import spaces
+    from vit_search_torch.cli import train as train_cli
+    from vit_search_torch.tools.make_synthfolder import generate
+    from vit_search_torch.train import restore_raw
+
+    monkeypatch.setitem(spaces._SPACES, "gpu_cli_112", lambda: CLI_SPACE)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    folder = str(tmp_path / "data")
+    generate(folder, num_classes=10, train_per_class=2, val_per_class=1, size=128)
+    results = {}
+    for device in ("cpu", "cuda"):
+        out = str(tmp_path / device)
+        argv = ["--model", "flexible_vit_sr_patch14_224_patch_output_supernet",
+                "--network-def", repr(CLI_NET), "--search-space", "gpu_cli_112",
+                "--example-per-arch", "2", "--use-patch-mixup", "--mixup-patch-len", "2",
+                "--input-size", "112", "--data-path", folder, "--batch-size", "8",
+                "--val-bs", "5", "--epochs", "1", "--max-steps-per-epoch", "2",
+                "--num_workers", "2", "--no-repeated-aug", "--warmup-epochs", "0",
+                "--drop-path", "0", "--reprob", "0.5", "--remode", "const",
+                "--model-ema-decay", "0.9", "--gelu", "tanh", "--device", device,
+                "--output_dir", out] + ([] if bf16 else ["--no-bf16"])
+        result = train_cli.main(train_cli.get_args_parser().parse_args(argv))
+        results[device] = (result, restore_raw(os.path.join(out, "checkpoints", "checkpoint")))
+    (r0, c0), (r1, c1) = results["cpu"], results["cuda"]
+    tol = chip_smoke.REF_NET_BF16_TOL["loss"] if bf16 else 1e-4
+    for key in ("train_loss", "test_loss", "ema_test_loss"):
+        assert math.isclose(r1[key], r0[key], rel_tol=tol), (key, r1[key], r0[key])
+    if not bf16:
+        for part in ("params", "ema_params"):
+            for k, v in c0[part].items():
+                chip_smoke.compare(f"{part} {k}", c1[part][k].cpu(), v, (1e-4, 1e-4),
+                                   floor=1e-6)

@@ -29,7 +29,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "vit_search_torch.tools.attn_lab, vit_search_torch.models.surgery, "
             "vit_search_torch.data.erasing, vit_search_torch.train.checkpoint, "
             "vit_search_torch.train.state, vit_search_torch.models.regnet, "
-            "vit_search_torch.ops.dropout, vit_search_torch.tools.teacher_check; "
+            "vit_search_torch.ops.dropout, vit_search_torch.tools.teacher_check, "
+            "vit_search_torch.data.loader, vit_search_torch.data.feed, "
+            "vit_search_torch.data.datasets, vit_search_torch.data.transforms, "
+            "vit_search_torch.data.samplers, vit_search_torch.data.subset, "
+            "vit_search_torch.cli.train, vit_search_torch.hub, vit_search_torch.utils, "
+            "vit_search_torch.tools.make_synthfolder, vit_search_torch.cli.evo_search, "
+            "vit_search_torch.tools.loader_check; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -112,3 +112,44 @@ def test_drop_path_generator_draws_are_reproducible():
     b = drop_path(x, 0.5, True, generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(a, b)
     assert set(a.unique().tolist()) == {0.0, 2.0}
+
+
+def _tree_arrays(counts):
+    out = {"embed": None if counts["embed"] is None else np.asarray(counts["embed"])}
+    out.update({(slot, k): np.asarray(v) for slot, site in counts["slots"].items()
+                for k, v in site.items()})
+    return out
+
+
+@pytest.mark.parametrize("arch_mode", ["single", "hybrid", "multi"])
+def test_full_counts_match_jax(arch_mode):
+    """The eval counts of the CLI: every channel of every site kept."""
+    net = presets.SUPERNET_SR_TINY_MH
+    ours = SupernetSchedules(net, spaces.get_space("sr_tiny_mh"), example_per_arch=8,
+                             num_warmup_epochs=30, arch_mode=arch_mode)
+    theirs = JaxSchedules(jax_presets.SUPERNET_SR_TINY_MH, jax_spaces.get_space("sr_tiny_mh"),
+                          example_per_arch=8, num_warmup_epochs=30, arch_mode=arch_mode)
+    a, b = _tree_arrays(ours.full_counts()), _tree_arrays(theirs.full_counts())
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+        assert a[k] is None or (a[k].shape == (1,) and a[k].dtype == np.int64)
+
+
+def test_eval_with_full_counts_is_the_dense_eval():
+    """Scoring a supernet with ``full_counts()`` gives the dense net's
+    metrics (``counts=None``), as the JAX CLI's eval relies on."""
+    from test_torch_model import NET, SPACE
+    from vit_search_torch.models import VisionTransformerSR
+    from vit_search_torch.train import make_eval_step
+
+    model = VisionTransformerSR(NET, img_size=56, patch_size=14, num_classes=10, device="cpu")
+    sched = SupernetSchedules(NET, SPACE, example_per_arch=2, num_warmup_epochs=0)
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (4, 56, 56, 3), dtype=np.uint8))
+    labels = torch.as_tensor(rng.integers(0, 10, 4))
+    step = make_eval_step(model, device="cpu")
+    masked, dense = step(images, labels, sched.full_counts()), step(images, labels)
+    assert masked.keys() == dense.keys()
+    for k in dense:
+        torch.testing.assert_close(masked[k], dense[k], rtol=1e-6, atol=1e-6)

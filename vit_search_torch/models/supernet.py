@@ -86,6 +86,14 @@ class SupernetSchedules:
             counts["slots"][slot] = {k: s.sample(rng, batch) for k, s in site.items()}
         return counts
 
+    def full_counts(self) -> Dict:
+        """Eval-mode counts: every channel kept (shape (1,), broadcast)."""
+        counts = {"embed": None if self.embed is None else self.embed.full_counts(),
+                  "slots": {}}
+        for slot, site in self.slots.items():
+            counts["slots"][slot] = {k: s.full_counts() for k, s in site.items()}
+        return counts
+
     def _site_order(self):
         order = []
         if self.embed is not None:

@@ -68,6 +68,10 @@ class ChannelDropSchedule:
         num_cycles = 1 if self.single_arch else math.ceil(num_masks / len(active))
         return np.tile(active, num_cycles)
 
+    def full_counts(self) -> np.ndarray:
+        """Eval-mode counts: every channel kept (reference channel_drop.py:84-89)."""
+        return np.full((1,), self.num_channels, dtype=np.int64)
+
     def sample(self, rng: np.random.Generator, batch: int) -> np.ndarray:
         """Per-architecture keep counts for one step: permute the bank,
         truncate. Shape ``(1,)`` for single-arch sites, else

@@ -17,9 +17,13 @@ the distill head (the cls head when the model has none):
 ``grad_norm`` is measured before clipping, as ``optax.global_norm(grads)``
 is. Host draws (token mixup, mixup/CutMix, erasing boxes) come from a
 ``numpy.random.Generator`` and device draws (stochastic depth, dropout,
-erasing noise) from a ``torch.Generator`` on the model's device, both seeded
-by ``seed``; a :class:`StepDraws` injects any of them, so tests can feed in
-the JAX package's draws.
+erasing noise) from a ``torch.Generator`` on the model's device. Both are
+derived anew in every call from ``(seed, state.step)``, the port's
+counterpart of the JAX step's ``fold_in(rng, state.step)``
+(vit_search_tpu/train/engine.py:95): a step restored from a checkpoint (which
+holds ``state.step``) draws what an uninterrupted one draws at that step. A
+:class:`StepDraws` injects any of them, so tests can feed in the JAX
+package's draws.
 
 ``make_eval_step`` and ``make_per_example_correct_step`` (engine.py:189-252)
 run the model in eval mode under ``torch.no_grad()``, uint8 batches
@@ -30,7 +34,7 @@ or another set of them, such as the EMA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +98,16 @@ def normalize(images: torch.Tensor, config: TrainConfig) -> torch.Tensor:
     return (x - mean) / std
 
 
+def step_generators(seed: int, step: int, device) -> Tuple[np.random.Generator,
+                                                            torch.Generator]:
+    """The host and device generators of train step ``step`` of a run seeded
+    ``seed``: a function of the pair alone."""
+    words = np.random.SeedSequence((seed, step)).generate_state(2, np.uint32)
+    device_seed = (int(words[0]) << 31) ^ int(words[1])
+    return (np.random.default_rng((seed, step)),
+            torch.Generator(device=device).manual_seed(device_seed))
+
+
 def model_device(model: torch.nn.Module, device=None) -> torch.device:
     """The step's device (the CUDA device unless ``"cpu"`` is asked for);
     raises unless ``model`` is already there."""
@@ -127,10 +141,11 @@ def make_teacher(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tenso
 class TrainStep:
     """``step(images, labels, counts, draws=None) -> {loss, grad_norm, lr}``.
 
-    ``counts`` is the keep-count tree, or with ``counts_unpack``
-    (``SupernetSchedules.unpack``) one packed int vector; ``None`` trains the
-    dense net. ``loss`` and ``grad_norm`` stay on the device. With
-    ``config.ema_decay`` the step keeps an EMA of the parameters in
+    Each call's random draws are a function of ``(seed, state.step)``
+    (:func:`step_generators`). ``counts`` is the keep-count tree, or with
+    ``counts_unpack`` (``SupernetSchedules.unpack``) one packed int vector;
+    ``None`` trains the dense net. ``loss`` and ``grad_norm`` stay on the
+    device. With ``config.ema_decay`` the step keeps an EMA of the parameters in
     ``state.ema_params``; the optimizer's ``clip_grad`` (``make_optimizer``)
     clips the gradients by their global norm. ``teacher`` (see
     :func:`make_teacher`) maps the mixed images to logits for knowledge
@@ -151,20 +166,20 @@ class TrainStep:
         self.named_params = dict(model.named_parameters())
         self.state = TrainState(ema_params=init_ema(self.named_params)
                                 if config.ema_decay else None)
-        self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.seed, self.device = seed, device
         self.params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def __call__(self, images: torch.Tensor, labels: torch.Tensor, counts=None,
                  draws: Optional[StepDraws] = None) -> Dict:
         model, config = self.model, self.config
         draws = draws or StepDraws()
+        rng, generator = step_generators(self.seed, self.state.step, self.device)
         model.train()
 
         images = normalize(images, config)
         images = random_erasing(images, config.erasing_prob, config.erasing_mode,
-                                config.erasing_count, draws=draws.erasing, rng=self.rng,
-                                generator=self.generator)
+                                config.erasing_count, draws=draws.erasing, rng=rng,
+                                generator=generator)
         batch = images.shape[0]
         if counts is not None and self.counts_unpack is not None:
             counts = self.counts_unpack(torch.as_tensor(counts, device=images.device), batch)
@@ -173,19 +188,19 @@ class TrainStep:
         if config.mixup_mode == "token":
             images, targets, patch_targets = switch_token_mix(
                 images, labels, config.patch_len, config.num_classes, config.smoothing,
-                draws=draws.mix, rng=self.rng)
+                draws=draws.mix, rng=rng)
         elif config.mixup_mode == "mixup":
             images, targets = mixup_cutmix(
                 images, labels, config.num_classes, config.mixup_alpha, config.cutmix_alpha,
                 config.mixup_switch_prob, config.smoothing, config.mixup_prob,
                 mode=config.mixup_elem_mode, cutmix_minmax=config.cutmix_minmax,
-                draws=draws.mixup, rng=self.rng)
+                draws=draws.mixup, rng=rng)
         teacher_logits = None
         if self.teacher is not None and config.mixup_mode != "token":
             with torch.no_grad():
                 teacher_logits = self.teacher(images)
         outputs = model(images, masks, patch_output_type="seq",
-                        drop_keeps=draws.drop_keeps, generator=self.generator,
+                        drop_keeps=draws.drop_keeps, generator=generator,
                         dropout_keeps=draws.dropout_keeps)
 
         if config.mixup_mode == "token":
