@@ -113,7 +113,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    candidates per forward over three sub-val batches of 256 synthetic uint8
    images (the last with 128 valid rows); every candidate in the MAC band,
    every score in [0, 100], launches per forward exact, and one chunk's
-   logits within tolerance across the two routes;
+   logits within tolerance across the two routes; the proposals come from
+   the native (C++) generators (``evolver.backend == "native"``), whose
+   ``estimate_mac`` must equal the estimator on every candidate, and the
+   host seconds per generation of the native and the Python generators are
+   printed side by side (``native: ...``);
+   dist: two processes spawned from this script on the one card, joined over
+   gloo (NCCL refuses two ranks on one card), each with 256 rows of the
+   train phase's global batch of 512: two train steps (K1-K4 18/18/39/39
+   launches per rank-step) whose losses, grad norms and conv-stem running
+   statistics must be within ``DIST_TOL`` of the same two steps in one
+   process, both ranks bit for bit equal; the same steps under each planted
+   fault (``PLANTED_FAULTS``: the conv stem's batch statistics from a rank's
+   own rows, drop-path keeps drawn at a rank's shape) must be caught, by
+   the ranks' disagreement or a gap over ``DIST_TOL``; the fused search's
+   first generation scored on each rank's share of the sub-val batches
+   (K1/K3 18/39 per forward), scores equal to the search phase's; the
+   batch's gather and the gradients' all-reduce timed alone; then ``python -m vit_search_torch.cli.launch``
+   under a torchrun environment of one process on NCCL, one epoch of two
+   steps on the cli phase's folder; its imgs/s is that of two processes
+   time-sharing one card, not a multi-card figure;
 8. lab: the attention lab (``vit_search_torch.tools.attn_lab``) at its
    full-width shapes, ``main()`` (K11 against K2, K10 against K1, then each
    timed) and ``main_split()`` (K12a + K12b against K2, then timed), its
@@ -122,8 +141,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain versions at the lab's shapes;
 9. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
    reports (``train``; ``searched``; ``finetune``; ``distill``; ``ops``;
-   ``shapes``; ``lab``; ``search``, the stats route; ``search_fused``) and
-   its launches
+   ``shapes``; ``lab``; ``search``, the stats route; ``search_fused``;
+   ``dist``, K1-K4 at a rank's 256 rows, launches of rank 0's train steps
+   and scoring forwards) and its launches
    per pass of that path (a train step, one call of each op-level entry
    point, one call at one of the extra shapes, one shape of the lab, or a
    scoring forward), then the last line ``{"ok": true, "device": {...}}``.
@@ -263,6 +283,22 @@ POPULATION, PARENTS, MUTATIONS, MUTATE_PROB = 20, 8, 8, 0.3
 # generations of 75 mutations + 75 crossovers, on 25 images x 1000 classes
 REFERENCE_SEARCH = {"first": 500, "generations": 19, "per_generation": 150,
                     "sub_val_images": 25000}
+# dist: the train phase's step and the search phase's scoring in two processes
+# on the one card over gloo (NCCL refuses two ranks on one card), each rank
+# DIST_BATCH rows of the global BATCH; then cli.launch on NCCL alone
+DIST_PROCS, DIST_STEPS = 2, 2
+DIST_BATCH = BATCH // DIST_PROCS
+# two processes against one on the same card and data differ only in the
+# order of the sums (the gradients', the conv stem's batch statistics'):
+# relative limits on the losses, the grad norms and the conv stem's running
+# statistics (by norm), each near the geometric mean of the sound run's gap
+# and the smallest planted fault's (``PLANTED_FAULTS``, each of which must be
+# caught). On an H100 the sound run's gaps were 1.2e-5 / 3.6e-4 / 2.2e-6;
+# local drop-path keeps gave 1.1e-3 / 6.6e-3 / 8.3e-5; local batch
+# statistics 8.7e-5 / 5.3e-4 / 5.3e-2, and ranks that disagree
+DIST_TOL = {"loss": 1e-4, "grad_norm": 1.5e-3, "bn_stats": 1e-5}
+LAUNCH_STEPS = 2
+COMM_REPS = 5
 # H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and f32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
@@ -1702,6 +1738,285 @@ def cli(folder: str, root: str):
             "eval": evaluated["eval"], "seconds": {"first": first_s, "resumed": resumed_s,
                                                    "eval": eval_s}}
 
+def dist_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of the ``dist`` phase, in a process of its own on the one
+    card, joined over gloo through the file ``store``: ``DIST_STEPS`` train
+    phase steps on its ``DIST_BATCH`` rows of the train phase's global batch,
+    the gather of the batch and the gradients' all-reduce timed alone at the
+    step's sizes, then the search phase's first generation (the native
+    generators' ``POPULATION`` random candidates) scored on its share of the
+    sub-val batches (batches ``rank::world``). Writes its numbers to
+    ``out/dist_rank<rank>.json``."""
+    import gc
+
+    import numpy as np
+    import torch
+    from vit_search_torch import parallel
+    from vit_search_torch.arch import ComputationEstimator, presets, spaces
+    from vit_search_torch.models import SupernetSchedules, create_model
+    from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
+    from vit_search_torch.search import BatchedSupernetEvaluator, PopulationEvolver
+    from vit_search_torch.tools import attn_lab  # noqa: F401  (registers K10-K12)
+
+    parallel.init_distributed(f"file://{store}", world, rank, local_rank=0, device="cuda",
+                              backend="gloo")
+    report = {"rank": rank, "group": parallel.describe()}
+    step, sched = supernet_step()
+    images, labels = synthetic_batch(BATCH, 224, 0)
+    lo, hi = parallel.batch_slice(BATCH)
+    images, labels = images[lo:hi].contiguous(), labels[lo:hi].contiguous()
+    rng = np.random.default_rng(0)
+    kernels.reset_launches()
+    metrics, report["step_s"] = [], []
+    for _ in range(DIST_STEPS):
+        parallel.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step(images, labels, sched.sample_packed(rng, BATCH)))
+        torch.cuda.synchronize()
+        report["step_s"].append(time.perf_counter() - t0)
+    report["train_launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    report.update(dist_readings(step, metrics))
+    report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+
+    # the step's collectives alone, at its sizes: the uint8 batch's gather
+    # (token mixup needs the global batch) and the one flat all-reduce of
+    # the gradients
+    grads = [p.grad for p in step.params]
+    comm = {"gather_bytes": images.numel() * world, "grad_bytes": 4 * sum(g.numel() for g in grads)}
+    for name, fn in (("gather_ms", lambda: parallel.all_gather(images)),
+                     ("grad_all_reduce_ms", lambda: parallel.all_reduce_mean_(grads))):
+        parallel.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COMM_REPS):
+            fn()
+        torch.cuda.synchronize()
+        comm[name] = 1e3 * (time.perf_counter() - t0) / COMM_REPS
+    report["collectives"] = comm
+    del step, metrics, grads
+    # the same steps again under each planted fault: the readings that the
+    # limits must catch
+    report["faults"] = {}
+    for fault, plant in PLANTED_FAULTS.items():
+        undo = plant()
+        try:
+            step, _ = supernet_step()
+            rng = np.random.default_rng(0)
+            metrics = [step(images, labels, sched.sample_packed(rng, BATCH))
+                       for _ in range(DIST_STEPS)]
+            report["faults"][fault] = dist_readings(step, metrics)
+        finally:
+            undo()
+        del step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    net, space = presets.SUPERNET_SR_TINY_MH, spaces.get_space("sr_tiny_mh")
+    model = create_model(SEARCH_MODEL, network_def=net, dtype=torch.bfloat16, gelu="tanh",
+                         seed=0, ln_route="fused")
+    est = ComputationEstimator(distill=False, input_resolution=224, patch_size=14)
+    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="native")
+    evolver.random_sample(POPULATION)
+    defs = [ind.network_def for ind in evolver.popu]
+    loader = sub_val_loader()[rank::world]
+    evaluator = BatchedSupernetEvaluator(
+        model, SupernetSchedules(net, space, example_per_arch=1, num_warmup_epochs=0),
+        loader, arch_batch=ARCH_BATCH, score_head="cls")
+    kernels.reset_launches()
+    parallel.barrier()
+    t0 = time.perf_counter()
+    scores = evaluator.score(defs)
+    torch.cuda.synchronize()
+    report.update(score_s=time.perf_counter() - t0, backend=evolver.backend,
+                  score_launches={k.name: k.launches for k in kernels.KERNELS},
+                  forwards=-(-len(defs) // ARCH_BATCH) * len(loader),
+                  network_defs=[repr(d) for d in defs], scores=list(map(float, scores)))
+    with open(os.path.join(out, f"dist_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    parallel.shutdown()
+    return 0
+
+
+def dist_readings(step, metrics) -> dict:
+    """What the dist phase holds two processes to one by: the steps' losses
+    and grad norms and the conv stem's running batch statistics."""
+    return {"losses": [float(m["loss"]) for m in metrics],
+            "grad_norms": [float(m["grad_norm"]) for m in metrics],
+            "bn_stats": {name: b.tolist() for name, b in step.model.named_buffers()
+                         if name.endswith(("running_mean", "running_var"))}}
+
+
+def plant_local_bn():
+    """Planted fault: the conv stem's batch statistics from this rank's rows
+    alone. Returns its undo."""
+    from types import SimpleNamespace
+
+    from vit_search_torch.models import patch_embed
+
+    saved = patch_embed.parallel
+    patch_embed.parallel = SimpleNamespace(sum_over_processes=lambda x: x,
+                                           process_count=lambda: 1)
+    return lambda: setattr(patch_embed, "parallel", saved)
+
+
+def plant_local_drop_path():
+    """Planted fault: drop-path keeps drawn at this rank's shape instead of
+    cut from the global batch's (no ``RowShard``). Returns its undo."""
+    from vit_search_torch.train import engine
+
+    saved = engine.RowShard
+    engine.RowShard = lambda generator, *rows: generator
+    return lambda: setattr(engine, "RowShard", saved)
+
+
+PLANTED_FAULTS = {"local_bn_stats": plant_local_bn, "local_drop_path": plant_local_drop_path}
+
+
+def one_process_readings() -> dict:
+    """:func:`dist_readings` of ``DIST_STEPS`` train phase steps on the
+    whole global batch in this process."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    step, sched = supernet_step()
+    images, labels = synthetic_batch(BATCH, 224, 0)
+    rng = np.random.default_rng(0)
+    metrics = [step(images, labels, sched.sample_packed(rng, BATCH))
+               for _ in range(DIST_STEPS)]
+    out = dist_readings(step, metrics)
+    del step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_gaps(got: dict, want: dict) -> dict:
+    """Relative gaps of :func:`dist_readings`: the largest over the steps for
+    the losses and grad norms, the largest by norm over the statistics."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    bn = [math.dist(got["bn_stats"][k], v) / math.hypot(*v) for k, v in want["bn_stats"].items()]
+    return {"loss": max(map(rel, got["losses"], want["losses"])),
+            "grad_norm": max(map(rel, got["grad_norms"], want["grad_norms"])),
+            "bn_stats": max(bn)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist(folder: str, root: str, search_fused: dict):
+    """Two processes on the one card over gloo (``dist_worker``), held to one
+    process on the same global data: losses, grad norms and the conv stem's
+    running statistics within ``DIST_TOL`` of the train phase's first
+    ``DIST_STEPS`` steps run again here (the same model, batch, counts and
+    draws), and each of ``PLANTED_FAULTS`` caught; the first generation's scores
+    equal to the fused-route search phase's (the same candidates, batches
+    and forward shapes), both ranks equal bit for bit, K1-K4 18/18/39/39
+    launches per rank-step and K1/K3 18/39 per scoring forward. Then ``python
+    -m vit_search_torch.cli.launch`` under a torchrun environment of one
+    process on NCCL: one epoch of ``LAUNCH_STEPS`` steps of
+    super_net/tiny.sh on the cli phase's folder."""
+    out = os.path.join(root, "dist")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                               str(r), str(DIST_PROCS), os.path.join(out, "store"), out],
+                              cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(DIST_PROCS)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    workers_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dist: rank {r} exited {p.returncode}:\n{text[-6000:]}")
+    ranks = []
+    for r in range(DIST_PROCS):
+        with open(os.path.join(out, f"dist_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("losses", "grad_norms", "bn_stats", "scores", "network_defs"):
+            if r[key] != r0[key]:
+                raise AssertionError(f"dist: ranks disagree on {key}: {r0[key]} vs {r[key]}")
+    one = one_process_readings()
+    # the sound run within every limit; each planted fault caught, by the
+    # ranks' disagreement or by a gap over its limit
+    gaps = {"sound": dist_gaps(r0, one)}
+    faults = {}
+    for fault in PLANTED_FAULTS:
+        got = [r["faults"][fault] for r in ranks]
+        gaps[fault] = dist_gaps(got[0], one)
+        faults[fault] = {"ranks_agree": all(g == got[0] for g in got),
+                         "over": [k for k, tol in DIST_TOL.items() if gaps[fault][k] > tol]}
+    print(f"dist: gaps of two processes to one (limits {json.dumps(DIST_TOL)}): "
+          f"{json.dumps(gaps)}; planted faults {json.dumps(faults)}", flush=True)
+    over = [k for k, tol in DIST_TOL.items() if gaps["sound"][k] > tol]
+    if over:
+        raise AssertionError(f"dist: two processes against one over the limits on {over}: "
+                             f"{gaps['sound']}")
+    missed = [f for f, v in faults.items() if v["ranks_agree"] and not v["over"]]
+    if missed:
+        raise AssertionError(f"dist: the limits do not catch the planted faults {missed}")
+    first = search_fused["first_generation"]
+    if r0["network_defs"] != first["network_defs"] or r0["backend"] != "native":
+        raise AssertionError("dist: the native generators drew other candidates than the "
+                             "search phase's")
+    if r0["scores"] != first["scores"]:
+        raise AssertionError(f"dist: scores {r0['scores']} vs one process {first['scores']}")
+    for r in ranks:
+        check_launches(r["train_launches"], PER_STEP, DIST_STEPS, f"rank {r['rank']} steps")
+        check_launches(r["score_launches"], PER_FORWARD["fused"], r["forwards"],
+                       f"rank {r['rank']} scoring forwards")
+    launches = {name: r0["train_launches"][name] + r0["score_launches"][name]
+                for name in KERNEL_NAMES}
+    # the last step's time, the slower rank's: the first pays the libraries'
+    # warm-up
+    step_s = max(r["step_s"][-1] for r in ranks)
+
+    # cli.launch as torchrun starts it, one process, NCCL
+    launch_out = os.path.join(root, "launch")
+    argv = with_flags(script_args(SUPERNET_SCRIPT), {
+        "--data-path": folder, "--batch-size": str(BATCH), "--epochs": "1",
+        "--max-steps-per-epoch": str(LAUNCH_STEPS), "--output_dir": launch_out,
+        "--num_workers": str(host_cores())})
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vit_search_torch.cli.launch", *argv],
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    launch_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dist: cli.launch exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(launch_out, "verbose.log")) as f:
+        group = next((line for line in f if "over nccl" in line), None)
+    if group is None or "rank 0 of 1 over nccl" not in group:
+        raise AssertionError(f"dist: cli.launch did not run over NCCL: {group}")
+    with open(os.path.join(launch_out, "log.txt")) as f:
+        lines = [json.loads(line) for line in f]
+    if [line["epoch"] for line in lines] != [0] or not math.isfinite(lines[0]["train_loss"]):
+        raise AssertionError(f"dist: cli.launch logged {lines}")
+    return {"ranks": ranks, "launches": launches, "workers_s": workers_s,
+            "two_process_imgs_per_s": BATCH / step_s, "one_process": one,
+            "gaps": gaps, "planted_faults": faults,
+            "launch": {"argv": argv, "seconds": launch_s, "group": group.strip(),
+                       "epochs": lines}}
+
+
 def sub_val_loader():
     """Synthetic sub-val batches of uint8 images on the card, the same at
     every call; the last batch has ``LAST_VALID`` valid rows."""
@@ -1740,6 +2055,28 @@ def chunk_forward(model, sched, defs, images):
     return logits, ms
 
 
+def python_generations(net, space, est):
+    """Host seconds of the Python generators for the search phase's two
+    generations (random ``POPULATION``, then ``MUTATIONS`` mutations and as
+    many crossovers), scored by a deterministic stand-in for accuracy."""
+    from vit_search_torch.search import PopulationEvolver
+
+    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="python")
+    seconds = []
+    for generation in range(2):
+        t0 = time.perf_counter()
+        if generation == 0:
+            evolver.random_sample(POPULATION)
+        else:
+            evolver.evolve_sample(parent_size=PARENTS, mutate_prob=MUTATE_PROB,
+                                  mutate_size=MUTATIONS)
+        seconds.append(time.perf_counter() - t0)
+        for ind in evolver.popu:
+            ind.score = float(est(ind.network_def) % 997) / 10.0
+        evolver.update_history()
+    return seconds
+
+
 def search(ln_route: str, card: str):
     """Score an evolutionary population on the full-width supernet with its
     masked LNs on ``ln_route``. Returns the report and one chunk's logits."""
@@ -1765,7 +2102,9 @@ def search(ln_route: str, card: str):
     evaluator = BatchedSupernetEvaluator(model, sched, loader, arch_batch=ARCH_BATCH,
                                          score_head="cls")
     est = ComputationEstimator(distill=False, input_resolution=224, patch_size=14)
-    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0)
+    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="native")
+    if evolver.backend != "native":
+        raise AssertionError(f"search: the evolver took the {evolver.backend} generators")
 
     # warm-up, and one chunk's logits for the cross-check of the two routes
     t0 = time.perf_counter()
@@ -1782,6 +2121,7 @@ def search(ln_route: str, card: str):
     torch.cuda.reset_peak_memory_stats()
     gen_s = score_s = 0.0
     forwards = 0
+    native_gen_s, first = [], {}
     for generation in range(2):
         t0 = time.perf_counter()
         if generation == 0:
@@ -1793,6 +2133,9 @@ def search(ln_route: str, card: str):
         defs = [ind.network_def for ind in evolver.popu]
         scores = evaluator.score(defs)
         torch.cuda.synchronize()
+        if generation == 0:
+            first = {"network_defs": [repr(d) for d in defs], "scores": list(map(float, scores))}
+        native_gen_s.append(t1 - t0)
         gen_s += t1 - t0
         score_s += time.perf_counter() - t1
         forwards += -(-len(defs) // ARCH_BATCH) * len(loader)
@@ -1812,6 +2155,11 @@ def search(ln_route: str, card: str):
     if not all(math.isfinite(i.score) and 0.0 <= i.score <= 100.0 for i in candidates):
         raise AssertionError(f"scores outside [0, 100]: {[i.score for i in candidates]}")
     check_launches(launches, PER_FORWARD[ln_route], forwards, f"forwards on {ln_route}")
+    mismatched = [ind.network_def for ind in candidates
+                  if evolver.native.estimate_mac(ind.network_def) != est(ind.network_def)]
+    if mismatched:
+        raise AssertionError(f"native estimate_mac differs from the estimator on {mismatched}")
+    python_gen_s = python_generations(net, space, est)
     # one chunk (a forward per sub-val batch) under the profiler
     busy_ms, wall_ms, classes, top = profile_kernels(lambda: evaluator.score(check_defs))
 
@@ -1828,6 +2176,9 @@ def search(ln_route: str, card: str):
            "candidates_per_s": len(candidates) / score_s,
            "candidate_images_per_s": len(candidates) * valid_images / score_s,
            "score_s": score_s, "generator_s": gen_s, "warmup_s": warm_s,
+           "generator_backend": evolver.backend,
+           "generator_s_per_generation": {"native": native_gen_s, "python": python_gen_s},
+           "first_generation": first,
            "max_memory_allocated_bytes": peak, "chunk_forward_ms": chunk_ms,
            "launches": launches, "macs_min_max": [min(macs), max(macs)],
            "best": {"score": evolver.best().score,
@@ -1842,6 +2193,11 @@ def search(ln_route: str, card: str):
           f"candidates x {valid_images} images, {SEARCH_BATCH} images per forward), host "
           f"generators {gen_s:.3f} s, peak memory {peak / 2**30:.2f} GiB on {card}",
           flush=True)
+    print(f"native, ln_route={ln_route}: {len(candidates)} candidates in the MAC band, native "
+          f"estimate_mac equal to the estimator on each; host generator s per generation "
+          f"(random {POPULATION}, then {MUTATIONS} + {MUTATIONS}): native "
+          + " / ".join(f"{v:.4f}" for v in native_gen_s) + ", python "
+          + " / ".join(f"{v:.4f}" for v in python_gen_s) + f" on {card}", flush=True)
     n = len(loader)
     by_class = ", ".join(f"{c} {ms / n:.1f}" for c, ms in sorted(classes.items(),
                                                                    key=lambda kv: -kv[1]))
@@ -1858,6 +2214,9 @@ def search(ln_route: str, card: str):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
+    parser.add_argument("--dist-worker", nargs=4, default=None,
+                        metavar=("RANK", "WORLD", "STORE", "OUT"),
+                        help="run one rank of the dist phase (the script starts these)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1865,6 +2224,9 @@ def main(argv=None) -> int:
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
     sys.path.insert(0, HERE)
+    if args.dist_worker:
+        rank, world, store, out = args.dist_worker
+        return dist_worker(int(rank), int(world), store, out)
     from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
     from vit_search_torch.tools import attn_lab  # noqa: F401
 
@@ -1900,6 +2262,10 @@ def main(argv=None) -> int:
     entries += check_dense_shapes(REPS)
     log("K1/K2 agree with their plain versions at the searched Tiny net's and the 392 px "
         "finetune's stage shapes")
+    for stage in range(len(STAGES)):
+        entries += (check_attention(stage, REPS, DIST_BATCH, "dist", backward=True)
+                    + check_masked_ln(stage, REPS, DIST_BATCH, "dist", backward=True))
+    log(f"K1-K4 agree with their plain versions at a rank's {DIST_BATCH} rows")
     for ln_route in ("fused", "stats"):
         report[f"reference_net_{ln_route}"] = errs = check_reference_net(ln_route)
         log(f"reference net, ln_route={ln_route}: card vs CPU {errs}")
@@ -1959,7 +2325,8 @@ def main(argv=None) -> int:
           f"{ds['batch']}) peak memory {ds['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
           f"on {card}; teacher forward {ds['teacher_ms']:.1f} ms per step "
           f"({100 * ds['teacher_share']:.1f}% of the step)", flush=True)
-    # the host pipeline and the training CLI on a synthetic image folder
+    # the host pipeline and the training CLI on a synthetic image folder, which
+    # the dist phase's cli.launch run reads too
     scratch = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         folder = os.path.join(scratch, "synthfolder")
@@ -1986,20 +2353,37 @@ def main(argv=None) -> int:
               f"(SIGTERM in epoch 1, then --resume auto), epoch imgs/s "
               + " / ".join(f"{v:.1f}" for v in cl["epoch_imgs_per_s"])
               + f", --eval acc1 {cl['eval']['acc1']:.3f} on {card}", flush=True)
+        log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s, "
+            f"mixup phase {mx['seconds']:.1f} s, distill phase {ds['seconds']:.1f} s, "
+            f"folder {report['folder_s']:.1f} s, loader phase {ld['seconds']:.1f} s, "
+            f"cli phase {cl['wall_s']:.1f} s")
+        # the search on each masked-LN route, one model on the card at a time;
+        # one chunk's logits must agree across the routes
+        searches, logits = {}, {}
+        for ln_route in ("stats", "fused"):
+            searches[ln_route], logits[ln_route] = search(ln_route, card)
+        report["search"] = searches
+        report["search_logits_stats_vs_fused_max_abs_err"] = compare(
+            "search logits, stats vs fused route", logits["stats"], logits["fused"], BF16_TOL)
+        del logits
+        torch.cuda.empty_cache()   # the card's memory to the dist phase's processes
+        t0 = time.perf_counter()
+        report["dist"] = dt = dist(folder, scratch, searches["fused"])
+        dt["seconds"] = time.perf_counter() - t0
+        comm = dt["ranks"][0]["collectives"]
+        print(f"dist: {DIST_PROCS} processes time-sharing 1 card over gloo, "
+              f"{dt['two_process_imgs_per_s']:.1f} imgs/s in step {DIST_STEPS} of a global "
+              f"batch {BATCH} ({DIST_BATCH} rows per rank); losses "
+              + " / ".join(f"{v:.6f}" for v in dt["ranks"][0]["losses"]) + " vs one process "
+              + " / ".join(f"{v:.6f}" for v in dt["one_process"]["losses"])
+              + f"; scores equal to one process over {POPULATION} candidates; rank 0 gather "
+              f"{comm['gather_ms']:.1f} ms ({comm['gather_bytes'] / 2**20:.1f} MiB), gradient "
+              f"all-reduce {comm['grad_all_reduce_ms']:.1f} ms "
+              f"({comm['grad_bytes'] / 2**20:.1f} MiB); cli.launch on NCCL (WORLD_SIZE=1) "
+              f"{LAUNCH_STEPS} steps in {dt['launch']['seconds']:.1f} s; phase "
+              f"{dt['seconds']:.1f} s on {card}", flush=True)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s, "
-        f"mixup phase {mx['seconds']:.1f} s, distill phase {ds['seconds']:.1f} s, "
-        f"folder {report['folder_s']:.1f} s, loader phase {ld['seconds']:.1f} s, "
-        f"cli phase {cl['wall_s']:.1f} s")
-    # the search on each masked-LN route, one model on the card at a time;
-    # one chunk's logits must agree across the routes
-    searches, logits = {}, {}
-    for ln_route in ("stats", "fused"):
-        searches[ln_route], logits[ln_route] = search(ln_route, card)
-    report["search"] = searches
-    report["search_logits_stats_vs_fused_max_abs_err"] = compare(
-        "search logits, stats vs fused route", logits["stats"], logits["fused"], BF16_TOL)
     # the lab last: its full-width plain comparisons stay off the train and
     # search lines
     report["lab"] = lab = lab_path()
@@ -2021,7 +2405,8 @@ def main(argv=None) -> int:
             "shapes": (shapes, PER_SHAPES_CALL),
             "lab": (lab, PER_LAB_SHAPE),
             "search": (searches["stats"], PER_FORWARD["stats"]),
-            "search_fused": (searches["fused"], PER_FORWARD["fused"])}
+            "search_fused": (searches["fused"], PER_FORWARD["fused"]),
+            "dist": (dt, PER_STEP)}
     by_name = {k.name: k for k in kernels.KERNELS}
     for e in entries:
         k = by_name[e["name"]]

@@ -138,7 +138,7 @@ def test_evolver_search_loop_matches_jax():
     """The full loop with the synthetic predictor of test_search.py: every
     generation and the sorted history equal the JAX python backend's."""
     predictor = _synthetic_accuracy(LARGEST)
-    port = PopulationEvolver(LARGEST, SPACE, CONSTRAINT, EST, seed=0)
+    port = PopulationEvolver(LARGEST, SPACE, CONSTRAINT, EST, seed=0, backend="python")
     ref = JaxEvolver(LARGEST, SPACE, CONSTRAINT, JAX_EST, seed=0, backend="python")
     for it in range(4):
         for ev in (port, ref):
@@ -162,7 +162,7 @@ def test_evolver_search_loop_matches_jax():
 def test_evolver_refuses_out_of_order_calls_like_jax():
     """evolve_sample before any history, with an unscored generation pending,
     and with more parents than the history holds: the same errors as JAX."""
-    port = PopulationEvolver(LARGEST, SPACE, CONSTRAINT, EST, seed=3)
+    port = PopulationEvolver(LARGEST, SPACE, CONSTRAINT, EST, seed=3, backend="python")
     ref = JaxEvolver(LARGEST, SPACE, CONSTRAINT, JAX_EST, seed=3, backend="python")
     for ev in (port, ref):
         with pytest.raises(RuntimeError, match="history is empty"):

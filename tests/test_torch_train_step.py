@@ -7,7 +7,8 @@ the JAX step's own: the token-mixup permutations, box and mixing weight are
 rebuilt from the keys the JAX step derives (engine.py:95-96, mixup.py), and
 the stochastic-depth keeps are fixed arrays that both sides take (the JAX
 ``_drop_path`` is replaced for the test, since flax derives its per-module
-keys internally).
+keys internally). ``tests/test_torch_distributed.py`` holds the same step,
+run in two processes, to this reference.
 """
 
 import jax
@@ -31,10 +32,10 @@ from vit_search_tpu.train import make_optimizer as jax_make_optimizer
 from vit_search_tpu.train import make_train_step as jax_make_train_step
 from vit_search_torch.convert import from_jax, load_jax
 from vit_search_torch.data.mixup import ImageMixDraws, PatchMixDraws, TokenMixDraws
-from vit_search_torch.models import SupernetSchedules, VisionTransformerSR
-from vit_search_torch.train import (OptimConfig, StepDraws, TrainConfig, lr_schedule,
-                                    make_optimizer, make_train_step)
+from vit_search_torch.models import VisionTransformerSR
+from vit_search_torch.train import OptimConfig, StepDraws, TrainConfig
 
+from test_torch_distributed import port_step
 from test_torch_model import NET, SPACE
 
 BATCH, IMG, PATCH_LEN, CLASSES, DPR = 8, 56, 2, 10, 0.1
@@ -54,12 +55,16 @@ def _jax_token_mix_draws(k_mix, batch, grid):
                          ImageMixDraws(perm2, lam2))
 
 
-@pytest.fixture
-def fixed_drop_path(monkeypatch):
-    """Make the JAX blocks take fixed keeps, in call order (attn, mlp, ...)."""
+def fixed_keeps():
+    """The stochastic-depth keeps both sides take, in call order (attn, mlp, ...)."""
     rng = np.random.default_rng(7)
     keeps = [rng.random(BATCH) < 1.0 - DPR for _ in range(6)]
     keeps[0][:2] = False        # make sure some branches are dropped
+    return keeps
+
+
+def _take_keeps(monkeypatch, keeps):
+    """Make the JAX blocks take ``keeps``, in call order (attn, mlp, ...)."""
     calls = [0]
 
     def drop_path(x, rate, key, deterministic):
@@ -69,11 +74,22 @@ def fixed_drop_path(monkeypatch):
         return jnp.where(keep, x / (1.0 - rate), jnp.zeros_like(x))
 
     monkeypatch.setattr(jax_layers, "_drop_path", drop_path)
+
+
+@pytest.fixture
+def fixed_drop_path(monkeypatch):
+    """Make the JAX blocks take :func:`fixed_keeps`; returns them."""
+    keeps = fixed_keeps()
+    _take_keeps(monkeypatch, keeps)
     return keeps
 
 
-def test_train_step_matches_jax(fixed_drop_path):
-    keeps = fixed_drop_path
+def jax_reference_step(monkeypatch):
+    """The JAX step on the seeded batch, its JAX blocks made to take
+    :func:`fixed_keeps`; and the port's model, config and draws for the
+    same step. Returns a dict."""
+    keeps = fixed_keeps()
+    _take_keeps(monkeypatch, keeps)
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)
     labels = rng.integers(0, CLASSES, BATCH)
@@ -111,43 +127,60 @@ def test_train_step_matches_jax(fixed_drop_path):
 
     jgrads = jax.tree.map(np.asarray, jax.jit(jax.grad(loss_fn))(params))
 
-    # --- the port, same weights and draws
+    # --- the port's side: the same weights and draws
     model = VisionTransformerSR(NET, img_size=IMG, patch_size=14, num_classes=CLASSES,
                                 patch_output=True, drop_path_rate=DPR, device="cpu")
     load_jax(model, params, stats)
-    ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=2, global_batch_size=BATCH)
-    sched = SupernetSchedules(NET, SPACE, example_per_arch=2, num_warmup_epochs=0)
-    step = make_train_step(model, make_optimizer(ocfg, model),
-                           TrainConfig(num_classes=CLASSES, mixup_mode="token",
-                                       patch_len=PATCH_LEN),
-                           schedule=lr_schedule(ocfg), counts_unpack=sched.unpack,
-                           device="cpu")
-    draws = StepDraws(mix=_jax_token_mix_draws(k_mix, BATCH, PATCH_LEN),
-                      drop_keeps=[torch.tensor(k) for k in keeps])
-    metrics = step(torch.tensor(images), torch.tensor(labels), counts, draws=draws)
+    return {
+        "images": images, "labels": labels, "counts": counts,
+        "model_kwargs": dict(network_def=NET, img_size=IMG, patch_size=14,
+                             num_classes=CLASSES, patch_output=True, drop_path_rate=DPR),
+        "state_dict": model.state_dict(),
+        "ocfg": OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=2, global_batch_size=BATCH),
+        "tcfg": TrainConfig(num_classes=CLASSES, mixup_mode="token", patch_len=PATCH_LEN),
+        "space": SPACE,
+        "draws": StepDraws(mix=_jax_token_mix_draws(k_mix, BATCH, PATCH_LEN),
+                           drop_keeps=[torch.tensor(k) for k in keeps]),
+        "metrics": {k: float(v) for k, v in jmetrics.items()},
+        "grads": from_jax(jgrads, stats, NET),
+        "state": from_jax(jax.tree.map(np.asarray, new_state.params),
+                          jax.tree.map(np.asarray, new_state.batch_stats), NET),
+    }
 
-    np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
-    np.testing.assert_allclose(float(metrics["grad_norm"]), float(jmetrics["grad_norm"]),
-                               rtol=1e-5)
-    assert metrics["lr"] == pytest.approx(float(jmetrics["lr"]), rel=1e-7)
 
-    want_grads = from_jax(jgrads, stats, NET)
-    for name, p in model.named_parameters():
+def assert_step_matches_jax(ref, metrics, grads, state):
+    """The port's step (its metrics, each parameter's gradient as numpy and
+    the state dict after the step) against :func:`jax_reference_step`'s."""
+    jmetrics = ref["metrics"]
+    np.testing.assert_allclose(float(metrics["loss"]), jmetrics["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), jmetrics["grad_norm"], rtol=1e-5)
+    assert metrics["lr"] == pytest.approx(jmetrics["lr"], rel=1e-7)
+
+    want_grads = ref["grads"]
+    for name, got in grads.items():
         g = want_grads[name]
-        np.testing.assert_allclose(p.grad.numpy(), g, rtol=1e-4,
-                                   atol=1e-5 * np.abs(g).max() + 1e-9, err_msg=name)
+        np.testing.assert_allclose(got, g, rtol=1e-4, atol=1e-5 * np.abs(g).max() + 1e-9,
+                                   err_msg=name)
 
     # AdamW's first step moves each parameter by lr * g / (|g| + eps), about
     # lr: hold it to 1e-6. Where |g| is near eps = 1e-8 the direction is
     # rounding noise on either side, so there the step may differ by 2 * lr.
-    want = from_jax(jax.tree.map(np.asarray, new_state.params),
-                    jax.tree.map(np.asarray, new_state.batch_stats), NET)
-    got = model.state_dict()
-    assert sorted(got) == sorted(want)
-    lr = float(jmetrics["lr"])
+    want = ref["state"]
+    assert sorted(state) == sorted(want)
+    lr = jmetrics["lr"]
     for name, v in want.items():
         tol = np.full(v.shape, 1e-6, np.float32)
-        if name in want_grads and name in dict(model.named_parameters()):
+        if name in grads:
             tol[np.abs(want_grads[name]) < 1e-7] = 2 * lr + 1e-6
-        err = np.abs(got[name].numpy() - v)
+        err = np.abs(state[name].numpy() - v)
         assert (err <= tol).all(), f"{name}: max err {err.max():.3g}"
+
+
+def test_train_step_matches_jax(monkeypatch):
+    ref = jax_reference_step(monkeypatch)
+    model, step = port_step(ref)
+    metrics = step(torch.tensor(ref["images"]), torch.tensor(ref["labels"]), ref["counts"],
+                   draws=ref["draws"])
+    assert_step_matches_jax(ref, metrics,
+                            {n: p.grad.numpy() for n, p in model.named_parameters()},
+                            model.state_dict())

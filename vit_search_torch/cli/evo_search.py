@@ -11,10 +11,14 @@ written as the JAX CLI writes them. Candidates are scored as masked
 batched supernet inference (``search.BatchedSupernetEvaluator``) on the
 held-out sub-val split.
 
-The proposals come from the port's Python generators: under one seed they
-equal the JAX package's ``PopulationEvolver(backend="python")``. The JAX
-CLI takes its native (C++) generators whenever g++ builds them, which
-draw other candidates under the same seed.
+The evolver takes its default backend, as the JAX CLI does: the native
+(C++) generators of ``vit_search_torch.native`` whenever g++ builds them,
+else the Python ones; the log names the one taken. Under one seed either
+draws the JAX package's candidates of the same backend.
+
+Across processes (``cli.launch``), each rank scores the sub-val shard its
+``ShardedSampler`` gives it and the per-candidate sums are all-reduced, so
+every rank keeps the same population; only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -86,13 +90,13 @@ def main(args) -> dict:
     import numpy as np
     import torch
 
-    from .. import arch, data, models, train, utils
-    from ..device import resolve_device
+    from .. import arch, data, models, parallel, train, utils
     from ..models.supernet import SupernetSchedules
     from ..search import BatchedSupernetEvaluator, PopulationEvolver
 
-    device = resolve_device(args.device)
-    logger = utils.file_logger(args.output_dir or None, is_master=True)
+    device = parallel.process_device(args.device)
+    is_main = parallel.is_main_process()
+    logger = utils.file_logger(args.output_dir or None, is_master=is_main)
     logger.info(str(args))
     np.random.seed(args.seed)
 
@@ -106,7 +110,8 @@ def main(args) -> dict:
     dataset_val = data.build_dataset(False, data_set=args.data_set, data_path=args.data_path,
                                      transform=data.EvalTransform(size=args.input_size),
                                      use_holdout=True)
-    sampler = data.ShardedSampler(len(dataset_val), 1, 0, shuffle=False)
+    sampler = data.ShardedSampler(len(dataset_val), parallel.process_count(),
+                                  parallel.process_index(), shuffle=False)
     padded = data.PaddedEvalLoader(
         data.DataLoader(dataset_val, sampler, args.val_bs, num_workers=args.num_workers,
                         drop_last=False), sampler.num_valid_samples)
@@ -138,8 +143,11 @@ def main(args) -> dict:
         patch_size=patch_size)
     evolver = PopulationEvolver(network_def, space, args.constraint_value, estimator,
                                 seed=args.seed)
+    logger.info(f"proposal generators: {evolver.backend}")
 
-    if args.output_dir:
+    # every process keeps the same population; rank 0 writes the files
+    write = bool(args.output_dir) and is_main
+    if write:
         os.makedirs(args.output_dir, exist_ok=True)
 
     best_per_iter = []
@@ -158,7 +166,7 @@ def main(args) -> dict:
         for ind, score in zip(evolver.popu, scores):
             ind.score = float(score)
 
-        if args.output_dir:
+        if write:
             with open(os.path.join(args.output_dir,
                                    f"iter@{search_iter}_popu.pickle"), "wb") as f:
                 pickle.dump([(ind.network_def, ind.score) for ind in evolver.popu], f)
@@ -172,7 +180,7 @@ def main(args) -> dict:
         best_per_iter.append(best.score)
         logger.info(f"Iter {search_iter}: best acc1 = {best.score:.3f}, "
                     f"time = {time.time() - t_iter:.1f}s")
-        if args.output_dir:
+        if write:
             with open(os.path.join(args.output_dir, "summary.txt"), "a") as f:
                 f.write(f"iter {search_iter}: score={best.score:.4f} "
                         f"mac={estimator(best.network_def)} "
@@ -183,7 +191,7 @@ def main(args) -> dict:
     best = evolver.best()
     logger.info(f"Best: {best}")
     return {"best_network_def": best.network_def, "best_score": best.score,
-            "best_per_iter": best_per_iter}
+            "best_per_iter": best_per_iter, "backend": evolver.backend}
 
 
 if __name__ == "__main__":

@@ -13,9 +13,15 @@ experiment script's flag set parses unchanged. The stack it drives:
 
 Differences from the JAX CLI:
 
-- one process on one device: ``--device`` is the CUDA device by default
+- one process per device: ``--device`` is the CUDA device by default
   and the CPU only when ``--device cpu`` asks for it (no silent fallback;
-  ``device.resolve_device``);
+  ``device.resolve_device``). Under ``cli.launch`` (``torchrun``) each
+  process joins a ``torch.distributed`` group, trains on its card
+  ``cuda:<local rank>`` and feeds its rank's shard of the global batch
+  (``parallel``); only rank 0 writes logs and checkpoints, every rank
+  restores, the eval totals are summed over processes, and a SIGTERM on
+  any rank stops every rank at the same step (the flag is max-all-reduced
+  where the metrics sync);
 - ``--gelu`` goes to the model as an argument; no environment variable;
 - checkpoints are the port's (``train.checkpoint``); ``--resume`` also
   takes a local reference ``.pth(.tar)`` and a local archive;
@@ -242,11 +248,12 @@ def _restore(step, raw: Dict, logger) -> Dict:
 def main(args) -> dict:
     import torch
 
-    from .. import arch, data, hub, models, train, utils
-    from ..device import resolve_device
+    from .. import arch, data, hub, models, parallel, train, utils
     from ..models.supernet import SupernetSchedules
 
-    device = resolve_device(args.device)
+    device = parallel.process_device(args.device)
+    n_proc, rank = parallel.process_count(), parallel.process_index()
+    is_main = parallel.is_main_process()
 
     if args.drop_block is not None:
         # Every model family here is ViT/DeiT: none has a drop-block op.
@@ -257,12 +264,13 @@ def main(args) -> dict:
         raise NotImplementedError(
             "--drop-block is not supported by any ViT/DeiT model family")
 
-    logger = utils.file_logger(args.output_dir or None, is_master=True)
+    logger = utils.file_logger(args.output_dir or None, is_master=is_main)
     logger.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + f"; {parallel.describe()}")
     logger.info(str(args))
 
-    np.random.seed(args.seed)
+    np.random.seed(args.seed + rank)
 
     # --- data ------------------------------------------------------------
     train_transform = data.TrainTransform(
@@ -280,7 +288,6 @@ def main(args) -> dict:
         inat_category=args.inat_category)
     num_classes = dataset_train.num_classes
 
-    n_proc, rank = 1, 0
     if args.repeated_aug:
         train_sampler = data.RepeatedAugmentSampler(len(dataset_train), n_proc, rank)
     else:
@@ -518,6 +525,10 @@ def main(args) -> dict:
             drain(device_acc)
         if not totals:
             return {}
+        # the global sums: every process holds an equal shard of the split
+        keys = sorted(totals)
+        totals = dict(zip(keys, parallel.all_reduce_sum(
+            np.array([totals[k] for k in keys], dtype=np.float64)).tolist()))
         count = max(totals.pop("count"), 1.0)
         stats = {("acc1" if k == "top1" else "acc5" if k == "top5" else k):
                  v / count * (100.0 if k.startswith(("top", "dst", "jnt")) else 1.0)
@@ -553,8 +564,12 @@ def main(args) -> dict:
     named_params = dict(model.named_parameters())
 
     def save_epoch(epoch: int, metadata: dict, **best) -> None:
-        with host_ema_in_slot():
-            ckpt.save_epoch(step, epoch, metadata=metadata, **best)
+        """Rank 0 writes; every rank waits for the write to end before any
+        rank reads it back."""
+        if is_main:
+            with host_ema_in_slot():
+                ckpt.save_epoch(step, epoch, metadata=metadata, **best)
+        parallel.barrier()
 
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -622,7 +637,9 @@ def main(args) -> dict:
                 global_step = epoch * steps_per_epoch + it
                 if args.profile_dir and epoch == start_epoch and it == 1:
                     profiler = _start_profiler(device)
-                counts = (schedules.sample_packed(host_rng, images.shape[0])
+                # the counts of the GLOBAL batch, the same on every process
+                # (vit_search_tpu/cli/train.py's rule); the step keeps its rows
+                counts = (schedules.sample_packed(host_rng, images.shape[0] * n_proc)
                           if schedules is not None else None)
                 if it < skip_steps:
                     # already applied before the preemption; the counts draw
@@ -641,9 +658,13 @@ def main(args) -> dict:
                     _stop_profiler(profiler, args.profile_dir)
                     profiler = None
                     logger.info(f"profiler trace written to {args.profile_dir}")
-                if len(pending) >= sync_every:
+                at_sync = len(pending) >= sync_every or it == steps_per_epoch - 1
+                if at_sync:
                     drain_pending()
-                if _PREEMPTED.is_set():
+                # a process group stops every rank at the same step: the ranks
+                # agree on the flag where they sync (a max-all-reduce); one
+                # process checks it after every step
+                if (at_sync or n_proc == 1) and parallel.any_process(_PREEMPTED.is_set()):
                     drain_pending()
                     feed.close()
                     logger.warning(f"preempted at epoch {epoch} step {it}; "
@@ -662,7 +683,7 @@ def main(args) -> dict:
             epoch_imgs_per_sec = steps_done * global_batch / epoch_secs if epoch_secs > 0 else 0.0
             logger.info(f"Epoch: [{epoch}] throughput: {epoch_imgs_per_sec:.1f} imgs/s "
                         f"({steps_done} steps, global batch {global_batch})")
-            metric_logger.synchronize_between_processes()
+            metric_logger.synchronize_between_processes(parallel.all_reduce_sum)
             train_stats = metric_logger.averages()
             train_stats["imgs_per_sec"] = epoch_imgs_per_sec
             logger.info(f"Averaged stats: {metric_logger}")
@@ -689,7 +710,7 @@ def main(args) -> dict:
                          **{f"ema_test_{k}": v for k, v in ema_stats.items()},
                          "epoch": epoch, "n_parameters": n_parameters}
             result = log_stats
-            if args.output_dir:
+            if args.output_dir and is_main:
                 with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
                     f.write(json.dumps(log_stats) + "\n")
             if ckpt:

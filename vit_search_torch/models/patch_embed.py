@@ -7,7 +7,11 @@
 
 Port of vit_search_tpu/models/patch_embed.py. Batch norm follows flax:
 momentum 0.9 on the running statistics, a biased batch variance
-``E[x^2] - E[x]^2`` computed in float32, eps 1e-5.
+``E[x^2] - E[x]^2`` computed in float32, eps 1e-5. In a process group the
+train-mode statistics are the global batch's, as flax's under a
+mesh-sharded jit: the per-channel sums are all-reduced inside autograd
+(``parallel.sum_over_processes``), and the running statistics agree on
+every process.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from .layers import lecun_normal_, trunc_normal_
 
 
@@ -51,8 +56,11 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            sums = parallel.sum_over_processes(torch.stack(
+                [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+            n = xf.numel() // xf.shape[1] * parallel.process_count()
+            mean = sums[0] / n
+            var = (sums[1] / n - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

@@ -4,7 +4,8 @@ Each element is kept with probability ``1 - rate`` and the survivors are
 rescaled by ``1 / (1 - rate)``. A rate of 0, or eval mode, returns the input
 and consumes no draw. The keep mask, of the input's full shape, comes from
 ``keeps`` (an iterator of injected boolean tensors, in call order) when
-given, else from an explicit ``torch.Generator``.
+given, else from an explicit ``torch.Generator`` (or a
+``row_draws.RowShard`` of one).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 import torch
+
+from .row_draws import uniform
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -28,5 +31,5 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             raise ValueError(f"dropout keep of shape {tuple(keep.shape)} for an input of "
                              f"shape {tuple(x.shape)}")
     else:
-        keep = torch.rand(x.shape, device=x.device, generator=generator) < keep_prob
+        keep = uniform(x.shape, x.device, generator) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

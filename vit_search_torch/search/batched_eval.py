@@ -9,8 +9,11 @@ under candidate ``a``; training's round-robin order is a different one), and
 one masked forward scores ``A`` candidates at once. Valid because candidate
 extraction is prefix slicing and the masked forward equals the sliced one.
 
-One device: the JAX evaluator's ``mesh`` waits for the distributed slice
-(ROADMAP Queue 1 item 10).
+Across processes (``parallel``), the counterpart of the JAX evaluator's
+``mesh``: each process scores the sub-val shard its loader gives it (a
+``ShardedSampler`` of its rank), and the per-candidate correct sums and the
+valid-row total are all-reduced before the division, so every process
+returns the same scores.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models.supernet import SupernetSchedules, build_arch_masks
 from ..train.engine import TrainConfig, check_on, model_device, normalize
 
@@ -131,7 +135,8 @@ class BatchedSupernetEvaluator:
             per_candidate, valid_sum = self._step(images, labels, valid, counts)
             correct += per_candidate
             total += valid_sum
-        return correct.cpu().numpy() / max(float(total), 1.0) * 100.0
+        sums = parallel.all_reduce_sum(torch.cat([correct, total.view(1)])).cpu().numpy()
+        return sums[:-1] / max(float(sums[-1]), 1.0) * 100.0
 
     def score(self, network_defs: Sequence,
               progress: Optional[Callable[[str], None]] = None) -> List[float]:

@@ -8,8 +8,9 @@ with a skip-checking escape hatch once crossover stops producing novel
 candidates.
 
 Scoring is the caller's (``search.batched_eval`` scores candidates on the
-supernet). Only the pure-Python generators are ported: the JAX package's C++
-runtime (``vit_search_tpu/native``) waits for ROADMAP Queue 1 item 7.
+supernet). The proposals come from the native (C++) generators of
+``vit_search_torch.native`` where g++ builds them, else from the pure-Python
+ones in ``search.generators``, as in the JAX package's evolver.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import native as native_mod
 from ..arch import network_def as nd
 from . import generators
 
 _CROSSOVER_SKIP_CHECKING_THRESHOLD = 100
+BACKENDS = ("auto", "python", "native")
 
 
 @dataclasses.dataclass
@@ -41,19 +44,70 @@ class Individual:
 
 
 class PopulationEvolver:
-    """Under the same seed the populations equal the JAX package's
-    ``backend="python"`` ones."""
+    """Under the same seed and backend the populations equal the JAX
+    package's ``PopulationEvolver``."""
 
     def __init__(self, largest_network_def: Sequence, num_channels_to_keep: Sequence,
                  constraint: float, compute_resource: generators.ResourceFn,
-                 *, seed: Optional[int] = None):
+                 *, seed: Optional[int] = None, backend: str = "auto"):
+        """``backend``: 'auto' uses the native (C++) proposal generators when
+        the library builds, 'python' forces the reference-semantics
+        pure-Python path, 'native' requires the library. Either native
+        choice drops to Python when the native cost model disagrees with
+        ``compute_resource`` on the largest net. ``self.backend`` names the
+        generators taken."""
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.largest_network_def = nd.to_immutable(largest_network_def)
         self.num_channels_to_keep = num_channels_to_keep
         self.constraint = constraint
         self.compute_resource = compute_resource
         self.rng = np.random.default_rng(seed)
+
+        self.native = None
+        if backend in ("auto", "native"):
+            if native_mod.available():
+                est = compute_resource
+                self.native = native_mod.NativeSearchOps(
+                    self.largest_network_def, num_channels_to_keep, constraint,
+                    distill=getattr(est, "distill", False),
+                    input_resolution=getattr(est, "input_resolution", 224),
+                    patch_size=getattr(est, "patch_size", 14))
+                # guard: the native cost model must agree exactly
+                if (self.native.estimate_mac(self.largest_network_def)
+                        != compute_resource(self.largest_network_def)):
+                    self.native = None
+            elif backend == "native":
+                raise RuntimeError("native backend requested but unavailable: "
+                                   f"{native_mod.load_error()}")
+        self.backend = "python" if self.native is None else "native"
+
         self.popu: List[Individual] = []          # current (unscored) generation
         self.history_popu: List[Individual] = []  # every scored individual, deduped
+
+    def _seed(self) -> int:
+        return int(self.rng.integers(2 ** 63))
+
+    def _gen_random(self) -> nd.NetworkDef:
+        if self.native is not None:
+            return self.native.gen_random(self._seed())
+        return generators.gen_random_network_def(
+            self.largest_network_def, self.num_channels_to_keep,
+            self.constraint, self.compute_resource, rng=self.rng)
+
+    def _mutate(self, parent: nd.NetworkDef, m_prob: float) -> nd.NetworkDef:
+        if self.native is not None:
+            return self.native.mutate(parent, m_prob, self._seed())
+        return generators.mutate_network_def(
+            parent, self.num_channels_to_keep, m_prob,
+            self.constraint, self.compute_resource, rng=self.rng)
+
+    def _crossover(self, m: nd.NetworkDef, f: nd.NetworkDef) -> nd.NetworkDef:
+        if self.native is not None:
+            return self.native.crossover(m, f, self._seed())
+        return generators.crossover_network_def(
+            m, f, self.num_channels_to_keep,
+            self.constraint, self.compute_resource, rng=self.rng)
 
     # -- membership uses network_def equality, like the reference Individual.__eq__
     def _is_novel(self, ind: Individual) -> bool:
@@ -63,9 +117,7 @@ class PopulationEvolver:
         """Fill the generation with novel random in-band candidates."""
         count = 0
         while count < num_samples:
-            ind = Individual(generators.gen_random_network_def(
-                self.largest_network_def, self.num_channels_to_keep, self.constraint,
-                self.compute_resource, rng=self.rng))
+            ind = Individual(self._gen_random())
             if self._is_novel(ind):
                 self.popu.append(ind)
                 count += 1
@@ -96,9 +148,7 @@ class PopulationEvolver:
         count = 0
         while count < mutate_size:
             parent = self.history_popu[int(self.rng.integers(parent_size))]
-            ind = Individual(generators.mutate_network_def(
-                parent.network_def, self.num_channels_to_keep, mutate_prob,
-                self.constraint, self.compute_resource, rng=self.rng))
+            ind = Individual(self._mutate(parent.network_def, mutate_prob))
             if self._is_novel(ind):
                 self.popu.append(ind)
                 count += 1
@@ -107,10 +157,9 @@ class PopulationEvolver:
         skip_counter = 0
         while count < crossover_size:
             idx = self.rng.choice(parent_size, size=2, replace=False)
-            ind = Individual(generators.crossover_network_def(
-                self.history_popu[int(idx[0])].network_def,
-                self.history_popu[int(idx[1])].network_def, self.num_channels_to_keep,
-                self.constraint, self.compute_resource, rng=self.rng))
+            m = self.history_popu[int(idx[0])].network_def
+            f = self.history_popu[int(idx[1])].network_def
+            ind = Individual(self._crossover(m, f))
             if self._is_novel(ind) or skip_counter >= _CROSSOVER_SKIP_CHECKING_THRESHOLD:
                 self.popu.append(ind)
                 count += 1

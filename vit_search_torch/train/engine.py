@@ -25,6 +25,19 @@ holds ``state.step``) draws what an uninterrupted one draws at that step. A
 :class:`StepDraws` injects any of them, so tests can feed in the JAX
 package's draws.
 
+In a process group (``parallel``) each process holds the rows ``[lo, hi)``
+of the global batch and the step computes the global batch's function, as
+the JAX step does over a mesh-sharded array: the parameters start equal
+(broadcast from rank 0); the keep counts are unpacked and expanded for the
+global batch and cut to the process's rows; when erasing or mixing is on,
+the global batch is all-gathered first, so the host draws are made at the
+global shape and a row's mixing partner may live on another process; the
+stochastic-depth and dropout keeps are drawn at the global shape and cut
+(``ops.row_draws``); the conv stem's batch statistics are global
+(``models.patch_embed``); the gradients are averaged over processes in one
+flat all-reduce before the norm, the clip and AdamW, and the reported loss
+is the global mean. AdamW and the EMA then run alike on every process.
+
 ``make_eval_step`` and ``make_per_example_correct_step`` (engine.py:189-252)
 run the model in eval mode under ``torch.no_grad()``, uint8 batches
 normalized on the device; ``make_eval_step`` scores the model's parameters
@@ -39,10 +52,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.erasing import ErasingDraws, random_erasing
 from ..data.mixup import MixupDraws, TokenMixDraws, mixup_cutmix, switch_token_mix
 from ..device import resolve_device
 from ..models.supernet import build_arch_masks
+from ..ops.row_draws import RowShard
 from . import losses
 from .optim import clip_by_global_norm_
 from .state import TrainState, ema_update, init_ema
@@ -163,6 +178,8 @@ class TrainStep:
         self.model, self.optimizer, self.config = model, optimizer, config
         self.teacher = teacher
         self.schedule, self.counts_unpack = schedule, counts_unpack
+        self.world, self.rank = parallel.process_count(), parallel.process_index()
+        parallel.replicate(model)
         self.named_params = dict(model.named_parameters())
         self.state = TrainState(ema_params=init_ema(self.named_params)
                                 if config.ema_decay else None)
@@ -176,15 +193,24 @@ class TrainStep:
         rng, generator = step_generators(self.seed, self.state.step, self.device)
         model.train()
 
+        batch = images.shape[0]
+        global_batch, lo = batch * self.world, self.rank * batch
+        # erasing and mixing draw at the global shape, and a row's mixing
+        # partner may live on another process: they see the whole batch
+        gather = self.world > 1 and (config.mixup_mode != "none" or config.erasing_prob > 0)
+        if gather:
+            images, labels = parallel.all_gather(images), parallel.all_gather(labels)
         images = normalize(images, config)
         images = random_erasing(images, config.erasing_prob, config.erasing_mode,
                                 config.erasing_count, draws=draws.erasing, rng=rng,
                                 generator=generator)
-        batch = images.shape[0]
         if counts is not None and self.counts_unpack is not None:
-            counts = self.counts_unpack(torch.as_tensor(counts, device=images.device), batch)
-        masks = build_arch_masks(counts, model.network_def, batch, device=images.device)
+            counts = self.counts_unpack(torch.as_tensor(counts, device=images.device),
+                                        global_batch)
+        masks = _rows(build_arch_masks(counts, model.network_def, global_batch,
+                                       device=images.device), lo, batch, self.world)
 
+        targets = patch_targets = None
         if config.mixup_mode == "token":
             images, targets, patch_targets = switch_token_mix(
                 images, labels, config.patch_len, config.num_classes, config.smoothing,
@@ -195,13 +221,23 @@ class TrainStep:
                 config.mixup_switch_prob, config.smoothing, config.mixup_prob,
                 mode=config.mixup_elem_mode, cutmix_minmax=config.cutmix_minmax,
                 draws=draws.mixup, rng=rng)
+        if gather:
+            images, labels, targets, patch_targets = (
+                None if t is None else t[lo:lo + batch]
+                for t in (images, labels, targets, patch_targets))
+        drop_keeps, dropout_keeps = draws.drop_keeps, draws.dropout_keeps
+        if self.world > 1:
+            # per-example draws at the global shape, cut to this process's rows
+            generator = RowShard(generator, global_batch, lo, lo + batch)
+            drop_keeps = _rows(drop_keeps, lo, batch, self.world)
+            dropout_keeps = _rows(dropout_keeps, lo, batch, self.world)
         teacher_logits = None
         if self.teacher is not None and config.mixup_mode != "token":
             with torch.no_grad():
                 teacher_logits = self.teacher(images)
         outputs = model(images, masks, patch_output_type="seq",
-                        drop_keeps=draws.drop_keeps, generator=generator,
-                        dropout_keeps=draws.dropout_keeps)
+                        drop_keeps=drop_keeps, generator=generator,
+                        dropout_keeps=dropout_keeps)
 
         if config.mixup_mode == "token":
             cls_pred, patch_pred = outputs
@@ -226,6 +262,10 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        # equal shards: the mean of the processes' gradients is the global
+        # batch's, and so is the mean of their losses
+        parallel.all_reduce_mean_(grads)
+        loss = parallel.all_reduce_sum(loss.detach()) / self.world
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         clip_grad = self.optimizer.param_groups[0].get("clip_grad")
         if clip_grad:
@@ -239,7 +279,7 @@ class TrainStep:
         if self.state.ema_params is not None:
             ema_update(self.state.ema_params, self.named_params, config.ema_decay)
         self.state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
+        return {"loss": loss, "grad_norm": grad_norm, "lr": lr}
 
     def state_dict(self) -> Dict:
         """What a checkpoint holds: the step, the parameters, the BN
@@ -262,7 +302,22 @@ class TrainStep:
                 raise KeyError("the checkpoint's EMA names other parameters")
             for name, t in self.state.ema_params.items():
                 t.copy_(ema[name])
+            parallel.replicate(self.state.ema_params)
+        parallel.replicate(self.model)
         self.state.step = int(state["step"])
+
+
+def _rows(tree, lo: int, batch: int, world: int):
+    """``tree`` (a mask tree or a list of per-example tensors, or ``None``)
+    with every tensor cut to the rows ``[lo, lo + batch)`` of the global
+    batch; the tree itself when there is one process."""
+    if tree is None or world == 1:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, batch, world) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rows(v, lo, batch, world) for v in tree]
+    return tree[lo:lo + batch]
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
