@@ -133,6 +133,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    under a torchrun environment of one process on NCCL, one epoch of two
    steps on the cli phase's folder; its imgs/s is that of two processes
    time-sharing one card, not a multi-card figure;
+   study: ``python -m vit_search_torch.tools.accuracy_study`` in a
+   subprocess, as users run it, at a smoke scale (``STUDY_FLAGS``: 10
+   classes, 112 px, batch 128, 2 supernet epochs, a search of 8 + 4
+   candidates, two 2-epoch retrains, a 1-epoch finetune at 168 px): the
+   port's data tools, ``cli.train``, ``cli.evo_search`` on the checkpoint
+   ``cli.train`` wrote, ``cli.train --finetune`` and ``--eval`` on the
+   card; it must exit 0 with every summary key, both nets within the
+   scaled budget (448.6 M MACs), finite losses and top-1 in [0, 100], and
+   render its five sections through the port's ``render_results``; each
+   stage's seconds (``tools.study_timing``); then ``tools.gelu_delta`` in
+   this process on the retrained winner at 112 px: finite numbers, K1
+   launched exactly twice per attention block of the winner at N >= 8
+   (stage 3 at 112 px, N = 5, runs the plain version) and no other
+   kernel; ``--out`` also gets ``study_summary.json`` and
+   ``study_RESULTS.md``;
 8. lab: the attention lab (``vit_search_torch.tools.attn_lab``) at its
    full-width shapes, ``main()`` (K11 against K2, K10 against K1, then each
    timed) and ``main_split()`` (K12a + K12b against K2, then timed), its
@@ -298,6 +313,26 @@ DIST_BATCH = BATCH // DIST_PROCS
 # statistics 8.7e-5 / 5.3e-4 / 5.3e-2, and ranks that disagree
 DIST_TOL = {"loss": 1e-4, "grad_norm": 1.5e-3, "bn_stats": 1e-5}
 LAUNCH_STEPS = 2
+# study: the port's accuracy study (python -m vit_search_torch.tools.accuracy_study)
+# at a smoke scale: 10 classes of 64 train images (16 held out) and 26 val
+# images (260, so gelu_delta finds its 256), at 112 px (patch_len 2; the
+# finetune at 168 px), every stage of the pipeline, then gelu_delta in this
+# process on the retrained winner. The budget is the Tiny one scaled to the
+# 112 px token grid, as the study scales it.
+STUDY_SIZE, STUDY_FINETUNE_SIZE = 112, 168
+STUDY_FLAGS = {"--classes": "10", "--train-per-class": "64", "--val-per-class": "26",
+               "--holdout-per-class": "16", "--input-size": str(STUDY_SIZE),
+               "--batch-size": "128", "--supernet-epochs": "2", "--mask-warmup-epochs": "1",
+               "--retrain-epochs": "2", "--finetune-epochs": "1", "--popu": "8",
+               "--search-iters": "2", "--parent-size": "4", "--mutate-size": "2"}
+STUDY_BUDGET = TINY_BUDGET * (STUDY_SIZE / 224) ** 2
+STUDY_TIMEOUT_S = 600
+STUDY_KEYS = ("supernet_curve", "search_best_per_iter", "winner_def", "winner_mac",
+              "winner_curve", "winner_final_acc1", "random_def", "random_mac", "random_curve",
+              "random_final_acc1", "finetune_size", "finetune_curve", "eval_only")
+STUDY_SECTIONS = ("## 1. Supernet training learns", "## 2. Search improves fitness",
+                  "## 3. Searched net vs same-MAC controls", "## 4. Higher-resolution finetune",
+                  "## 5. Standalone `--eval`")
 COMM_REPS = 5
 # H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and f32 flop/s
 PEAK_BYTES = 3.35e12
@@ -2211,6 +2246,108 @@ def search(ln_route: str, card: str):
     return out, logits
 
 
+def kernel_attention_blocks(network_def, img_size: int, patch_size: int = 14,
+                            num_tokens: int = 1) -> int:
+    """The existing attention blocks of ``network_def`` at ``img_size`` that
+    take the fused kernel: ``ops.attention.supported`` at each stage's token
+    count and head dim (below N = 8 the model runs the plain version)."""
+    from vit_search_torch.arch import network_def as nd
+    from vit_search_torch.ops.attention import supported
+
+    grid, count = img_size // patch_size, 0
+    for block in network_def[1:-1]:
+        if nd.block_type(block) == nd.TRANSFORMER:
+            tdef = nd.transformer_def(block)
+            count += bool(tdef.exists and supported(grid * grid + num_tokens, tdef.head_dim, 0.0))
+        else:
+            grid //= 2
+    return count
+
+
+def study(root: str):
+    """``python -m vit_search_torch.tools.accuracy_study`` as users run it, in
+    a subprocess on the card at ``STUDY_FLAGS``' scale with one loader
+    worker per host core: the data, the supernet (``cli.train``), the search
+    (``cli.evo_search`` on the checkpoint the supernet run wrote), the winner
+    and the random control retrained, the 168 px finetune (``cli.train
+    --finetune``) and ``--eval``. The study must exit 0 with every summary
+    key, both nets within the scaled budget, every loss finite and every
+    top-1 in [0, 100]; the port's ``render_results`` must render all five
+    sections. Then ``tools.gelu_delta.main`` in this process on the
+    retrained winner at 112 px: finite numbers, and K1 launched exactly
+    twice (one forward per GELU form) per attention block of the winner
+    that takes the kernel (at 112 px the third stage has N = 5 tokens,
+    which run the plain version), no other kernel (the dense net runs
+    plain layer norms). The subprocesses' launches cannot be read from
+    here; the cli phase counts the CLIs' own."""
+    import contextlib
+
+    from vit_search_torch.arch import network_def as nd
+    from vit_search_torch.arch import parse_network_def
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.tools import gelu_delta, render_results, study_timing
+
+    out = os.path.join(root, "study")
+    argv = [sys.executable, "-m", "vit_search_torch.tools.accuracy_study", "--root", out,
+            *[a for kv in STUDY_FLAGS.items() for a in kv], "--num-workers", str(host_cores())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=STUDY_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"study: exit {proc.returncode}; its output ends\n"
+                             f"{proc.stdout[-4000:]}")
+    timing = study_timing.parse(proc.stdout)
+    with open(os.path.join(out, "study_summary.json")) as f:
+        summary = json.load(f)
+    missing = [k for k in STUDY_KEYS if k not in summary]
+    if missing:
+        raise AssertionError(f"study: the summary lacks {missing}")
+    if summary["finetune_size"] != STUDY_FINETUNE_SIZE:
+        raise AssertionError(f"study: finetune at {summary['finetune_size']} px")
+    for tag in ("winner", "random"):
+        if not 0 < summary[f"{tag}_mac"] <= STUDY_BUDGET:
+            raise AssertionError(f"study: {tag} MACs {summary[f'{tag}_mac']} over "
+                                 f"the budget {STUDY_BUDGET:.0f}")
+    curves = {k: v for k, v in summary.items() if k.endswith("_curve")}
+    for name, curve in curves.items():
+        if not curve or not all(math.isfinite(e["train_loss"]) and 0.0 <= e["test_acc1"] <= 100.0
+                                for e in curve):
+            raise AssertionError(f"study: {name} {curve}")
+    markdown_path = os.path.join(out, "RESULTS.md")
+    with contextlib.redirect_stdout(sys.stderr):
+        render_results.main([os.path.join(out, "study_summary.json"), markdown_path])
+    with open(markdown_path) as f:
+        markdown = f.read()
+    absent = [h for h in STUDY_SECTIONS if h not in markdown]
+    if absent:
+        raise AssertionError(f"study: the rendered markdown lacks {absent}")
+
+    def_file = os.path.join(out, "winner_def.txt")
+    with open(def_file, "w") as f:
+        f.write(summary["winner_def"])
+    winner = parse_network_def(summary["winner_def"])
+    blocks = kernel_attention_blocks(winner, STUDY_SIZE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        gelu = gelu_delta.main([os.path.join(out, "retrain_winner"), os.path.join(out, "data"),
+                                def_file, str(STUDY_SIZE)])
+    gelu_s = time.perf_counter() - t0
+    counted = {k.name: k.launches for k in kernels.KERNELS}
+    launches = {name: counted.get(name, 0) for name in KERNEL_NAMES}
+    want = per_pass(attention_qkv_fwd=2 * blocks)
+    if launches != want:
+        raise AssertionError(f"study: gelu_delta launches {launches}, expected {want} "
+                             f"(2 forwards x {blocks} attention blocks on the kernel)")
+    if not all(math.isfinite(v) for v in gelu.values()):
+        raise AssertionError(f"study: gelu_delta {gelu}")
+    return {"argv": argv[1:], "wall_s": wall_s, "timing": timing, "summary": summary,
+            "markdown": markdown, "gelu_delta": gelu, "gelu_delta_s": gelu_s,
+            "winner_attention_blocks": nd.existing_depth(winner),
+            "kernel_attention_blocks": blocks, "launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
@@ -2382,6 +2519,21 @@ def main(argv=None) -> int:
               f"({comm['grad_bytes'] / 2**20:.1f} MiB); cli.launch on NCCL (WORLD_SIZE=1) "
               f"{LAUNCH_STEPS} steps in {dt['launch']['seconds']:.1f} s; phase "
               f"{dt['seconds']:.1f} s on {card}", flush=True)
+        torch.cuda.empty_cache()   # the card's memory to the study's processes
+        report["study"] = st = study(scratch)
+        sm, stages, gd = st["summary"], st["timing"]["stages"], st["gelu_delta"]
+        print(f"study: accuracy_study at {STUDY_SIZE} px in {st['wall_s']:.1f} s ("
+              + ", ".join(f"{x['stage']} {x['seconds']} s" for x in stages)
+              + f"); winner {sm['winner_mac'] / 1e6:.1f}M MACs acc1 "
+              f"{sm['winner_final_acc1']:.2f}, random {sm['random_mac'] / 1e6:.1f}M acc1 "
+              f"{sm['random_final_acc1']:.2f} (budget {STUDY_BUDGET / 1e6:.1f}M); "
+              f"{STUDY_FINETUNE_SIZE} px finetune acc1 "
+              f"{sm['finetune_curve'][-1]['test_acc1']:.2f}; gelu_delta max |dlogit| "
+              f"{gd['max_abs_dlogit']:.4f}, top-1 agreement {gd['top1_agreement']:.2f}%, K1 "
+              f"{st['launches']['attention_qkv_fwd']} launches (2 x "
+              f"{st['kernel_attention_blocks']} of the winner's "
+              f"{st['winner_attention_blocks']} attention blocks, those at N >= 8) "
+              f"on {card}", flush=True)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # the lab last: its full-width plain comparisons stay off the train and
@@ -2419,6 +2571,10 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)
+        with open(os.path.join(args.out, "study_summary.json"), "w") as f:
+            json.dump(report["study"]["summary"], f, indent=1)
+        with open(os.path.join(args.out, "study_RESULTS.md"), "w") as f:
+            f.write(report["study"]["markdown"])
     keys = ("name", "stage", "batch", "route", "source", "replaces", "path", "launches",
             "launches_per_step",
             "max_abs_err", "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms",

@@ -35,7 +35,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "vit_search_torch.data.samplers, vit_search_torch.data.subset, "
             "vit_search_torch.cli.train, vit_search_torch.hub, vit_search_torch.utils, "
             "vit_search_torch.tools.make_synthfolder, vit_search_torch.cli.evo_search, "
-            "vit_search_torch.tools.loader_check; "
+            "vit_search_torch.tools.loader_check, vit_search_torch.tools.accuracy_study, "
+            "vit_search_torch.tools.render_results, vit_search_torch.tools.gelu_delta, "
+            "vit_search_torch.tools.study_timing; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
