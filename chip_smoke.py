@@ -134,9 +134,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    steps on the cli phase's folder; its imgs/s is that of two processes
    time-sharing one card, not a multi-card figure;
    study: ``python -m vit_search_torch.tools.accuracy_study`` in a
-   subprocess, as users run it, at a smoke scale (``STUDY_FLAGS``: 10
-   classes, 112 px, batch 128, 2 supernet epochs, a search of 8 + 4
-   candidates, two 2-epoch retrains, a 1-epoch finetune at 168 px): the
+   subprocess beside the recipes phase below, as users run it, at a smoke
+   scale (``STUDY_FLAGS``: 10 classes, 112 px, batch 128, 2 supernet
+   epochs, a search of 8 + 4 candidates, two 2-epoch retrains, a 1-epoch finetune at 168 px): the
    port's data tools, ``cli.train``, ``cli.evo_search`` on the checkpoint
    ``cli.train`` wrote, ``cli.train --finetune`` and ``--eval`` on the
    card; it must exit 0 with every summary key, both nets within the
@@ -148,6 +148,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (stage 3 at 112 px, N = 5, runs the plain version) and no other
    kernel; ``--out`` also gets ``study_summary.json`` and
    ``study_RESULTS.md``;
+   recipes: the 24 published scripts of ``scripts/vit-sr-nas`` through
+   ``cli.train.main`` and ``cli.evo_search.main`` in this process, each with
+   its own arguments (``recipe_argv``; set here: the data, a view of the cli
+   phase's folder whose train and val are its sub-train and sub-val; one
+   epoch of 2 steps; the loader workers; each search's population, 8 + 8
+   candidates, and its MODEL_PATH, the checkpoint its supernet's one-epoch
+   run wrote), at each script's own batch, with the working directory at a
+   temporary root so that every relative ``models/...`` path resolves as the
+   scripts write it: the seven supernets, the six searches on them, the
+   reference, searched and Medium nets, the 280 and 392 px finetunes from
+   the searched Medium net's ``best_ema`` and the eval of the searched Small
+   net's ``best``; every loss finite, every acc1 in [0, 100], every
+   candidate in its MAC band, the checkpoints later scripts read present,
+   K1-K4 launches exact per train step and per eval or scoring forward,
+   peak memory under the card's, one line per script on stderr; then K1/K2
+   (and K3/K4 on the supernets) at every stage of the Small supernet, the
+   ``sr_tiny_666`` supernet, the reference net and the 280 px finetune at
+   their scripts' batches against the plain versions, K2's route by kernel
+   name (profiled right after the build, the process's first profiler
+   session), and one profiled step of the Small supernet from
+   device batches;
 8. lab: the attention lab (``vit_search_torch.tools.attn_lab``) at its
    full-width shapes, ``main()`` (K11 against K2, K10 against K1, then each
    timed) and ``main_split()`` (K12a + K12b against K2, then timed), its
@@ -158,7 +179,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    reports (``train``; ``searched``; ``finetune``; ``distill``; ``ops``;
    ``shapes``; ``lab``; ``search``, the stats route; ``search_fused``;
    ``dist``, K1-K4 at a rank's 256 rows, launches of rank 0's train steps
-   and scoring forwards) and its launches
+   and scoring forwards; ``recipes``, the launches of the script whose net
+   gives the shape, per train step) and its launches
    per pass of that path (a train step, one call of each op-level entry
    point, one call at one of the extra shapes, one shape of the lab, or a
    scoring forward), then the last line ``{"ok": true, "device": {...}}``.
@@ -170,6 +192,7 @@ available, and when it stands alone without the repository.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
@@ -333,6 +356,49 @@ STUDY_KEYS = ("supernet_curve", "search_best_per_iter", "winner_def", "winner_ma
 STUDY_SECTIONS = ("## 1. Supernet training learns", "## 2. Search improves fitness",
                   "## 3. Searched net vs same-MAC controls", "## 4. Higher-resolution finetune",
                   "## 5. Standalone `--eval`")
+# recipes: the 24 published scripts of RECIPE_DIR, each through the port's CLI
+# in this process with its own arguments, in an order where every script runs
+# after the one whose checkpoint it reads. Set here: IMAGENET_PATH (a view of
+# the cli phase's folder whose train and val are its sub-train and sub-val),
+# MODEL_PATH (the searches: RECIPE_CHECKPOINT in the directory the script
+# names, which a one-epoch run writes where the script's default names epoch
+# 119's snapshot), one epoch of RECIPE_STEPS steps, the loader workers, and
+# each search's population (RECIPE_SEARCH); the working directory is a
+# temporary root, so every relative models/... path resolves as the scripts
+# write it
+RECIPE_DIR = "scripts/vit-sr-nas"
+RECIPES = ("super_net/tiny.sh", "super_net/small.sh", "super_net/no_distill/small_conv-patch.sh",
+           "super_net/no_distill/small_flexible-conv-patch.sh", "super_net/no_distill/tiny.sh",
+           "super_net/no_distill/tiny_conv-patch.sh", "super_net/no_distill/tiny_mh.sh",
+           "evolutionary_search/tiny.sh", "evolutionary_search/small_mac@2.9G.sh",
+           "evolutionary_search/medium_mac@4.6G.sh",
+           "evolutionary_search/no_distill/small_flexible-conv-patch.sh",
+           "evolutionary_search/no_distill/tiny_666.sh",
+           "evolutionary_search/no_distill/tiny_conv-patch.sh",
+           "reference_net/tiny.sh", "reference_net/tiny_conv_patchmixup.sh",
+           "searched_net/tiny.sh", "searched_net/no_distill/tiny_conv-patch.sh",
+           "searched_net/small_mac@2.9G.sh", "searched_net/no_distill/small_conv-patch_mac@2.9G.sh",
+           "searched_net/medium_mac@4.6G.sh",
+           "searched_net/no_distill/small_conv-patch_mac@4.6G.sh",
+           "finetune/medium_img-size@280.sh", "finetune/medium_img-size@392.sh",
+           "eval/small_mac@2.9G.sh")
+RECIPE_EPOCHS, RECIPE_STEPS = 1, 2
+RECIPE_CHECKPOINT = "checkpoint"
+RECIPE_SEARCH = {"--init-popu-size": "8", "--search-iter": "2", "--parent-size": "4",
+                 "--mutate-size": "4"}
+# the flags the recipes phase may set; any other argument is the script's own
+RECIPE_OVERRIDES = ("--data-path", "--model-path", "--epochs", "--max-steps-per-epoch",
+                    "--num_workers", *RECIPE_SEARCH, "--batch-size", "--val-bs")
+# a script whose own batch one card cannot hold runs at the largest power of
+# two that fits (script -> batch); none so far
+RECIPE_BATCH_CUTS: dict = {}
+# the recipes whose kernel shapes the kernel phase checks under the path
+# ``recipes`` (read from each script's network_def and token count): K1/K2
+# at every stage's widest heads, K3/K4 (supernets) at every stage's width
+RECIPE_KERNEL_SCRIPTS = (("Small supernet", "super_net/small.sh"),
+                         ("sr_tiny_666 supernet", "super_net/no_distill/tiny.sh"),
+                         ("reference net", "reference_net/tiny.sh"),
+                         ("280 px finetune", "finetune/medium_img-size@280.sh"))
 COMM_REPS = 5
 # H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and f32 flop/s
 PEAK_BYTES = 3.35e12
@@ -631,14 +697,15 @@ def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
     return entries
 
 
-def masked_ln_inputs(stage: int, batch: int):
-    """Seeded bf16 ``(x, mask, weight, bias, g)`` at stage ``stage`` (0-2),
-    a mask per example of one of five widths."""
+def masked_ln_inputs(stage: int, batch: int, nc=None):
+    """Seeded bf16 ``(x, mask, weight, bias, g)`` at stage ``stage`` (0-2)
+    of the supernet, or at ``nc = (N, C)`` seeded by ``stage``, a mask per
+    example of one of five widths."""
     import numpy as np
     import torch
     from vit_search_torch.ops.masking import make_channel_mask
 
-    n, c, _, _ = STAGES[stage]
+    n, c = nc or STAGES[stage][:2]
     gen = torch.Generator(device="cuda").manual_seed(100 + stage)
     widths = np.array([c, c * 7 // 8, c * 3 // 4, c * 11 // 16, c * 5 // 8])
     counts = torch.as_tensor(np.random.default_rng(stage).choice(widths, batch), device="cuda")
@@ -650,16 +717,17 @@ def masked_ln_inputs(stage: int, batch: int):
     return x * mask, mask, w, bias, g
 
 
-def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool):
-    """K3 (and K4 where ``backward``) against the plain versions at ``batch``."""
+def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool, nc=None):
+    """K3 (and K4 where ``backward``) against the plain versions at ``batch``,
+    at stage ``stage`` (0-2) of the supernet or at ``nc = (N, C)``."""
     import torch
     import torch.nn.functional as F
     from vit_search_torch.ops import kernels
     from vit_search_torch.ops import masked_layer_norm as M
 
-    n, c, _, _ = STAGES[stage]
+    n, c = nc or STAGES[stage][:2]
     b = batch
-    x, mask, w, bias, g = masked_ln_inputs(stage, b)
+    x, mask, w, bias, g = masked_ln_inputs(stage, b, nc)
     shape = {"B": b, "N": n, "C": c, "dtype": "bfloat16"}
 
     y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
@@ -683,7 +751,8 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
 
     with torch.no_grad():
         lib_fwd_ms = time_ms(layer_norm, reps)
-    entries = [dict(name="masked_layer_norm_fwd", stage=stage + 1, shape=shape, path=path,
+    entries = [dict(name="masked_layer_norm_fwd", stage=stage + 1, stage_index=stage,
+                    shape=shape, path=path,
                     max_abs_err=err_fwd,
                     tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                                f"stats: {STATS_TOL}"),
@@ -708,7 +777,8 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
                  14.0 * x.numel(), PEAK_F32)
     lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(layer_norm(), (lx, lw, lb), g), reps)
     entries.append(dict(
-        name="masked_layer_norm_bwd", stage=stage + 1, shape=shape, path=path,
+        name="masked_layer_norm_bwd", stage=stage + 1, stage_index=stage, shape=shape,
+        path=path,
         max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
         tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                    f"gw/gb: {F32_SUM_TOL}"),
@@ -731,7 +801,8 @@ def k4_launches(entries, reps: int) -> None:
     for e in entries:
         if e["name"] != "masked_layer_norm_bwd":
             continue
-        x, mask, w, bias, g = masked_ln_inputs(e["stage"] - 1, e["shape"]["B"])
+        x, mask, w, bias, g = masked_ln_inputs(e["stage_index"], e["shape"]["B"],
+                                               (e["shape"]["N"], e["shape"]["C"]))
         _, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
         _, _, _, top = profile_kernels(
             lambda: [M.masked_ln_bwd_cuda(x, mask, w, stats, g) for _ in range(reps)], top=50)
@@ -1253,10 +1324,12 @@ def run_steps(what: str, step, images, labels, counts, steps: int, warmup: int,
                               "by_class_ms": classes, "top_kernels": rows}}
 
 
-def supernet_step():
+def supernet_step(network_def=None, space: str = "sr_tiny_mh", batch: int = BATCH,
+                  example_per_arch: int = EXAMPLE_PER_ARCH, drop_path: float = 0.2,
+                  gelu: str = "tanh", patch_len: int = 4):
     """The train phase's step: the full-width ``SUPERNET_SR_TINY_MH``
     supernet, token mixup, drop_path 0.2, tanh GELU, bf16, AdamW; and its
-    keep-count sampler."""
+    keep-count sampler. A supernet recipe passes its script's values."""
     import gc
 
     import torch
@@ -1268,17 +1341,16 @@ def supernet_step():
     gc.collect()   # the last phase's model and optimizer off the card
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    net = presets.SUPERNET_SR_TINY_MH
+    net = network_def or presets.SUPERNET_SR_TINY_MH
     model = create_model("flexible_vit_sr_patch14_224_patch_output_supernet",
-                         network_def=net, dtype=torch.bfloat16, drop_path_rate=0.2,
-                         gelu="tanh", seed=0)
+                         network_def=net, dtype=torch.bfloat16, drop_path_rate=drop_path,
+                         gelu=gelu, seed=0)
     ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=120, steps_per_epoch=1000,
-                       global_batch_size=BATCH)
-    sched = SupernetSchedules(net, spaces.get_space("sr_tiny_mh"),
-                              example_per_arch=EXAMPLE_PER_ARCH, num_warmup_epochs=0,
-                              arch_mode="multi")
+                       global_batch_size=batch)
+    sched = SupernetSchedules(net, spaces.get_space(space), example_per_arch=example_per_arch,
+                              num_warmup_epochs=0, arch_mode="multi")
     step = make_train_step(model, make_optimizer(ocfg, model),
-                           TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4),
+                           TrainConfig(num_classes=1000, mixup_mode="token", patch_len=patch_len),
                            schedule=lr_schedule(ocfg), counts_unpack=sched.unpack, seed=0)
     return step, sched
 
@@ -1425,16 +1497,7 @@ def finetune(steps: int, warmup: int):
 
     # K2's route at each stage, from the net and from the profiled step's
     # launches by kernel name
-    grid, stages, d_of = 392 // 14, [], {}
-    for block in net[1:-1]:
-        if nd.block_type(block) == nd.TRANSFORMER:
-            tdef = nd.transformer_def(block)
-            n = grid * grid + 1
-            if not stages or stages[-1]["N"] != n:
-                stages.append({"N": n, "D": tdef.head_dim, "blocks": 0})
-            stages[-1]["blocks"] += 1
-        else:
-            grid //= 2
+    stages = [{k: st[k] for k in ("N", "D", "blocks")} for st in net_stages(net, 392)]
     for st in stages:
         st["route"] = "split" if A.backward_is_split(st["N"], st["D"]) else "one launch"
     calls = {name: sum(c for key, _, c in out["profiled_step"]["top_kernels"] if name in key)
@@ -1451,16 +1514,24 @@ def finetune(steps: int, warmup: int):
     return out
 
 
-def script_args(path: str) -> list:
-    """A training script's arguments, from the one after
-    ``-m vit_search_tpu.cli.<name>`` on."""
+def script_command(path: str, env=None):
+    """``(cli, argv)`` of a published script: the CLI it runs (``train`` or
+    ``evo_search``) and its arguments from the one after ``-m
+    vit_search_tpu.cli.<cli>`` on, each shell variable that the script sets as
+    ``VAR="${VAR:-default}"`` taken from ``env`` where given, else its
+    default."""
     import re
     import shlex
 
     with open(os.path.join(HERE, path)) as f:
-        words = shlex.split(re.sub(r"\\\n", " ", f.read()), comments=True)
+        text = f.read()
+    values = dict(re.findall(r'^(\w+)="\$\{\1:-([^}]*)\}"', text, re.M))
+    values.update({k: v for k, v in (env or {}).items() if k in values})
+    words = shlex.split(re.sub(r"\\\n", " ", text), comments=True)
     module = next(w for w in words if w.startswith("vit_search_tpu.cli."))
-    return words[words.index(module) + 1:]
+    argv = [re.sub(r"\$\{?(\w+)\}?", lambda m: values[m.group(1)], w)
+            for w in words[words.index(module) + 1:]]
+    return module.rsplit(".", 1)[1], argv
 
 
 def script_network_def(path: str):
@@ -1468,7 +1539,7 @@ def script_network_def(path: str):
     port's ``parse_network_def``."""
     from vit_search_torch.arch import parse_network_def
 
-    args = script_args(path)
+    _, args = script_command(path)
     return parse_network_def(args[args.index("--network-def") + 1])
 
 
@@ -1595,6 +1666,31 @@ def make_folder(root: str) -> float:
     return time.perf_counter() - t0
 
 
+def _make_folder_into(folder: str, seconds) -> None:
+    seconds.value = make_folder(folder)
+
+
+def start_folder(folder: str):
+    """:func:`make_folder` in a process of its own, so that the host makes the
+    folder while the card runs the kernel checks: ``(process, seconds)``,
+    where ``seconds.value`` receives its time once it ends."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    seconds = ctx.Value("d", -1.0)
+    proc = ctx.Process(target=_make_folder_into, args=(folder, seconds))
+    proc.start()
+    return proc, seconds
+
+
+def stop(proc, scratch: str) -> None:
+    """End ``proc`` if it still runs and remove ``scratch``."""
+    if proc.is_alive():
+        proc.terminate()
+    proc.join()
+    shutil.rmtree(scratch, ignore_errors=True)
+
+
 def loader(folder: str):
     """super_net/tiny.sh's input pipeline on the synthetic folder's
     sub-train split: ``TrainTransform`` at 224 px with RandAugment
@@ -1706,7 +1802,7 @@ def cli(folder: str, root: str):
     from vit_search_torch.train import restore_raw
 
     out_dir = os.path.join(root, "cli")
-    argv = with_flags(script_args(SUPERNET_SCRIPT), {
+    argv = with_flags(script_command(SUPERNET_SCRIPT)[1], {
         "--data-path": folder, "--batch-size": str(BATCH), "--epochs": str(CLI_EPOCHS),
         "--max-steps-per-epoch": str(CLI_STEPS), "--output_dir": out_dir,
         "--num_workers": str(host_cores())})
@@ -2024,7 +2120,7 @@ def dist(folder: str, root: str, search_fused: dict):
 
     # cli.launch as torchrun starts it, one process, NCCL
     launch_out = os.path.join(root, "launch")
-    argv = with_flags(script_args(SUPERNET_SCRIPT), {
+    argv = with_flags(script_command(SUPERNET_SCRIPT)[1], {
         "--data-path": folder, "--batch-size": str(BATCH), "--epochs": "1",
         "--max-steps-per-epoch": str(LAUNCH_STEPS), "--output_dir": launch_out,
         "--num_workers": str(host_cores())})
@@ -2264,7 +2360,29 @@ def kernel_attention_blocks(network_def, img_size: int, patch_size: int = 14,
     return count
 
 
-def study(root: str):
+def start_study(root: str):
+    """Start the study of :func:`study` in a process session of its own, its
+    output to a file: ``(process, argv, start time)``."""
+    out = os.path.join(root, "study")
+    argv = [sys.executable, "-m", "vit_search_torch.tools.accuracy_study", "--root", out,
+            *[a for kv in STUDY_FLAGS.items() for a in kv], "--num-workers", str(host_cores())]
+    with open(os.path.join(root, "study_stdout.txt"), "w") as f:
+        proc = subprocess.Popen(argv, cwd=HERE, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return proc, argv, time.perf_counter()
+
+
+def end_session(proc) -> None:
+    """Kill ``proc``'s process session (it and the processes it started) if
+    it still runs."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def study(root: str, started):
     """``python -m vit_search_torch.tools.accuracy_study`` as users run it, in
     a subprocess on the card at ``STUDY_FLAGS``' scale with one loader
     worker per host core: the data, the supernet (``cli.train``), the search
@@ -2287,17 +2405,20 @@ def study(root: str):
     from vit_search_torch.ops import kernels
     from vit_search_torch.tools import gelu_delta, render_results, study_timing
 
+    proc, argv, t0 = started
     out = os.path.join(root, "study")
-    argv = [sys.executable, "-m", "vit_search_torch.tools.accuracy_study", "--root", out,
-            *[a for kv in STUDY_FLAGS.items() for a in kv], "--num-workers", str(host_cores())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, timeout=STUDY_TIMEOUT_S)
+    try:
+        proc.wait(timeout=max(1.0, STUDY_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        end_session(proc)
+        raise AssertionError(f"study: not done in {STUDY_TIMEOUT_S} s")
     wall_s = time.perf_counter() - t0
+    with open(os.path.join(root, "study_stdout.txt")) as f:
+        stdout = f.read()
     if proc.returncode != 0:
         raise AssertionError(f"study: exit {proc.returncode}; its output ends\n"
-                             f"{proc.stdout[-4000:]}")
-    timing = study_timing.parse(proc.stdout)
+                             f"{stdout[-4000:]}")
+    timing = study_timing.parse(stdout)
     with open(os.path.join(out, "study_summary.json")) as f:
         summary = json.load(f)
     missing = [k for k in STUDY_KEYS if k not in summary]
@@ -2348,6 +2469,344 @@ def study(root: str):
             "kernel_attention_blocks": blocks, "launches": launches}
 
 
+def recipe_argv(script: str, data_path: str, workers: int):
+    """``(cli, argv)`` of a published script as the recipes phase runs it:
+    the script's own arguments with IMAGENET_PATH set to ``data_path``,
+    MODEL_PATH (the searches) to ``RECIPE_CHECKPOINT`` in the directory that
+    the script's default names, ``workers`` loader workers, one epoch of
+    ``RECIPE_STEPS`` steps (training, not ``--eval``), the population of
+    ``RECIPE_SEARCH`` (searches), and ``RECIPE_BATCH_CUTS``' batch where it
+    names the script. Needs no card."""
+    path = os.path.join(RECIPE_DIR, script)
+    _, own = script_command(path)
+    env = {"IMAGENET_PATH": data_path}
+    if "--model-path" in own:
+        default = own[own.index("--model-path") + 1]
+        env["MODEL_PATH"] = os.path.join(os.path.dirname(default), RECIPE_CHECKPOINT)
+    cli, argv = script_command(path, env)
+    flags = {"--num_workers": str(workers)}
+    if cli == "evo_search":
+        flags.update(RECIPE_SEARCH)
+    elif "--eval" not in argv:
+        flags.update({"--epochs": str(RECIPE_EPOCHS), "--max-steps-per-epoch": str(RECIPE_STEPS)})
+    if script in RECIPE_BATCH_CUTS:
+        flags["--batch-size"] = str(RECIPE_BATCH_CUTS[script])
+    return cli, with_flags(argv, flags)
+
+
+def recipe_reads(argv: list) -> list:
+    """The checkpoint directories a recipe's arguments read."""
+    return [argv[argv.index(flag) + 1] for flag in ("--model-path", "--finetune", "--resume")
+            if flag in argv]
+
+
+def recipe_launches(network_def, img_size: int, masked: bool):
+    """Launches per train step and per eval (or scoring) forward of a recipe's
+    net, counted from its network_def: K1/K2 on each attention block that
+    takes the kernel (N >= 8); where ``masked`` (a supernet), K3/K4 on each
+    masked layer norm: two per transformer block, one per spatial-reduction
+    block, one final. A dense net's layer norms are plain."""
+    from vit_search_torch.arch import network_def as nd
+
+    attention = kernel_attention_blocks(network_def, img_size)
+    lns = 0
+    if masked:
+        lns = (2 * nd.existing_depth(network_def) + 1
+               + sum(nd.block_type(b) == nd.SPATIAL_REDUCTION for b in network_def))
+    return (per_pass(attention_qkv_fwd=attention, attention_qkv_bwd=attention,
+                     masked_layer_norm_fwd=lns, masked_layer_norm_bwd=lns),
+            per_pass(attention_qkv_fwd=attention, masked_layer_norm_fwd=lns))
+
+
+def net_stages(network_def, img_size: int, patch_size: int = 14) -> list:
+    """Each stage of a net at ``img_size``: ``{"N", "C", "H", "D",
+    "blocks"}``, its token count, embedding width, widest attention's heads
+    and head dim, and its transformer blocks."""
+    from vit_search_torch.arch import network_def as nd
+
+    grid, stages, n = img_size // patch_size, [], None
+    for block in network_def[1:-1]:
+        if nd.block_type(block) != nd.TRANSFORMER:
+            grid //= 2
+            continue
+        t = nd.transformer_def(block)
+        if n != grid * grid + 1:
+            n = grid * grid + 1
+            stages.append({"N": n, "C": t.embed_dim, "H": 0, "D": t.head_dim, "blocks": 0})
+        st = stages[-1]
+        st["blocks"] += 1
+        if t.num_heads > st["H"]:
+            st.update(H=t.num_heads, D=t.head_dim)
+    return stages
+
+
+def recipe_stages(script: str):
+    """``[(N, C, heads, head_dim)]`` of each stage of a recipe's net at its
+    input size, from its network_def (``net_stages``)."""
+    from vit_search_torch.arch import parse_network_def
+
+    _, argv = recipe_argv(script, "", 1)
+    net = parse_network_def(argv[argv.index("--network-def") + 1])
+    size = int(argv[argv.index("--input-size") + 1]) if "--input-size" in argv else 224
+    return [(st["N"], st["C"], st["H"], st["D"]) for st in net_stages(net, size)]
+
+
+def recipe_data(folder: str, root: str) -> str:
+    """The recipes' data: a view of ``folder`` whose ``train`` and ``val``
+    are its ``sub-train`` and ``sub-val`` (the scripts without
+    ``--use-holdout``), beside the two under their own names."""
+    view = os.path.join(root, "recipes_data")
+    os.makedirs(view)
+    for name, target in (("train", "sub-train"), ("val", "sub-val"), ("sub-train", "sub-train"),
+                         ("sub-val", "sub-val")):
+        os.symlink(os.path.join(folder, target), os.path.join(view, name))
+    return view
+
+
+def search_candidates(args) -> list:
+    """``[(network_def, score)]`` of every generation a search CLI run wrote."""
+    import pickle
+
+    out = []
+    for i in range(args.search_iter):
+        with open(os.path.join(args.output_dir, f"iter@{i}_popu.pickle"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def recipes(folder: str, root: str):
+    """The 24 published scripts through the port's CLIs, in ``RECIPES``'
+    order, in this process with the working directory at a temporary root
+    (``recipe_argv``: the scripts' own arguments but for the overrides of
+    ``RECIPE_OVERRIDES``). For each script: it returns without an exception;
+    every loss it logs is finite; every eval's acc1 (the per-epoch eval, the
+    EMA's, ``--eval``) is in [0, 100]; every search candidate is within its
+    MAC band and scores in [0, 100]; the checkpoints that later scripts read
+    from its output directory exist; K1-K4 launch exactly their counts per
+    train step and per eval or scoring forward (``recipe_launches``); its
+    peak memory is under the card's. One line per script on stderr."""
+    import contextlib
+    import gc
+
+    import torch
+    from vit_search_torch import models
+    from vit_search_torch.arch import ComputationEstimator, parse_network_def
+    from vit_search_torch.cli import evo_search as evo_cli
+    from vit_search_torch.cli import train as train_cli
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.search.generators import RESOURCE_LOWER_BOUND
+
+    data_path = recipe_data(folder, root)
+    work = os.path.join(root, "recipes")
+    os.makedirs(work)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    train_images = FOLDER_CLASSES * (FOLDER_TRAIN - FOLDER_HOLDOUT)
+    val_images = FOLDER_CLASSES * FOLDER_HOLDOUT
+    commands = [(script, *recipe_argv(script, data_path, host_cores())) for script in RECIPES]
+    runs, outputs, cwd, t_phase = {}, set(), os.getcwd(), time.perf_counter()
+    os.chdir(work)
+    try:
+        for i, (script, cli, argv) in enumerate(commands):
+            module = train_cli if cli == "train" else evo_cli
+            args = module.get_args_parser().parse_args(argv)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):   # the CLI's console log
+                result = module.main(args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counted = {k.name: k.launches for k in kernels.KERNELS}
+            launches = {name: counted.get(name, 0) for name in KERNEL_NAMES}
+
+            net = parse_network_def(args.network_def)
+            masked = cli == "evo_search" or models.is_supernet_model(args.model)
+            per_step, per_forward = recipe_launches(net, args.input_size, masked)
+            run = {"cli": cli, "argv": argv, "seconds": seconds, "peak_bytes": peak,
+                   "launches": launches, "per_step": per_step, "per_forward": per_forward}
+            if cli == "train":
+                if args.eval:
+                    steps, passes, accs = 0, 1, [result["eval"]["acc1"]]
+                else:
+                    steps = args.epochs * min(args.max_steps_per_epoch,
+                                              train_images // args.batch_size)
+                    passes = args.epochs * (1 + bool(args.model_ema)) + bool(args.finetune)
+                    accs = [result["test_acc1"]] + ([result["ema_test_acc1"]]
+                                                   if args.model_ema else [])
+                    if not math.isfinite(result["train_loss"]):
+                        raise AssertionError(f"recipes: {script}: loss {result['train_loss']}")
+                    run.update(train_loss=result["train_loss"],
+                               imgs_per_s=result["train_imgs_per_sec"])
+                forwards = passes * math.ceil(val_images / args.val_bs)
+                run.update(batch=args.batch_size, acc1=accs)
+                if not all(0.0 <= a <= 100.0 for a in accs):
+                    raise AssertionError(f"recipes: {script}: acc1 {accs}")
+            else:
+                generations = search_candidates(args)
+                est = ComputationEstimator(distill="distill" in args.model,
+                                           input_resolution=args.input_size,
+                                           patch_size=args.patch_size or 14)
+                lo, hi = RESOURCE_LOWER_BOUND * args.constraint_value, args.constraint_value
+                sizes = [args.init_popu_size] + [2 * args.mutate_size] * (args.search_iter - 1)
+                macs = [est(d) for gen in generations for d, _ in gen]
+                scores = [s for gen in generations for _, s in gen]
+                if [len(gen) for gen in generations] != sizes:
+                    raise AssertionError(f"recipes: {script}: generations of "
+                                         f"{[len(g) for g in generations]}, expected {sizes}")
+                if not all(lo <= m <= hi for m in macs):
+                    raise AssertionError(f"recipes: {script}: MACs outside [{lo}, {hi}]: {macs}")
+                if not all(0.0 <= s <= 100.0 for s in scores):
+                    raise AssertionError(f"recipes: {script}: scores {scores}")
+                steps = 0
+                forwards = (sum(-(-n // args.arch_batch) for n in sizes)
+                            * math.ceil(val_images / args.val_bs))
+                run.update(batch=args.val_bs * args.arch_batch, candidates=len(macs),
+                           candidates_per_s=len(macs) / seconds, macs=[min(macs), max(macs)],
+                           best_score=result["best_score"])
+            want = {name: per_step[name] * steps + per_forward[name] * forwards
+                    for name in KERNEL_NAMES}
+            if launches != want:
+                raise AssertionError(f"recipes: {script}: launches {launches}, expected {want} "
+                                     f"({steps} train steps, {forwards} forwards)")
+            if peak >= card_bytes:
+                raise AssertionError(f"recipes: {script}: peak {peak} B of the card's "
+                                     f"{card_bytes}")
+            # the checkpoints that later scripts read from this one's output;
+            # an output no later script reads is removed (the machine's disk
+            # holds a few of the scripts' states, not all of them)
+            if getattr(args, "output_dir", ""):
+                outputs.add(args.output_dir.rstrip("/"))
+            reads = [path for _, _, later in commands[i + 1:] for path in recipe_reads(later)]
+            for path in reads:
+                if args.output_dir and path.startswith(args.output_dir.rstrip("/") + "/"):
+                    if not os.path.isfile(os.path.join(path, "state.pt")):
+                        raise AssertionError(f"recipes: {script} left no {path}")
+            for out in sorted(outputs):
+                if not any(path.startswith(out + "/") for path in reads):
+                    shutil.rmtree(out)
+                    outputs.discard(out)
+            run.update(steps=steps, forwards=forwards)
+            runs[script] = run
+            cut = (f" (cut from the script's {script_batch(script)}: one card)"
+                   if script in RECIPE_BATCH_CUTS else "")
+            rate = (f"throughput {run['imgs_per_s']:.1f} imgs/s" if "imgs_per_s" in run
+                    else f"{run['candidates']} candidates, {run['candidates_per_s']:.2f}/s"
+                    if cli == "evo_search" else "eval only")
+            log(f"recipes: {script}: batch {run['batch']}{cut}, val-bs {args.val_bs}, {steps} "
+                f"steps, {forwards} "
+                f"eval forwards, {rate}, acc1 {run.get('acc1', run.get('best_score'))}, peak "
+                f"{peak / 2**30:.2f} GiB, K1/K2/K3/K4 " + "/".join(
+                    str(launches[k]) for k in KERNEL_NAMES[:4]) + f", {seconds:.1f} s")
+    finally:
+        os.chdir(cwd)
+    return {"scripts": runs, "seconds": time.perf_counter() - t_phase}
+
+
+def script_batch(script: str) -> int:
+    """A published script's own ``--batch-size``."""
+    _, argv = script_command(os.path.join(RECIPE_DIR, script))
+    return int(argv[argv.index("--batch-size") + 1])
+
+
+def recipe_profile(script: str, steps: int, warmup: int):
+    """A token-mixup supernet recipe's train step (``supernet_step`` with the
+    script's net, space, batch, examples per architecture, drop path, GELU
+    and patch length) on device batches, no host decode, timed by
+    ``run_steps`` with one step under the profiler."""
+    import numpy as np
+    from vit_search_torch.arch import parse_network_def
+    from vit_search_torch.cli import train as train_cli
+
+    _, argv = recipe_argv(script, "", 1)
+    args = train_cli.get_args_parser().parse_args(argv)
+    net = parse_network_def(args.network_def)
+    step, sched = supernet_step(net, args.search_space, args.batch_size, args.example_per_arch,
+                                args.drop_path, args.gelu, args.mixup_patch_len)
+    images, labels = synthetic_batch(args.batch_size, args.input_size, 6)
+    rng = np.random.default_rng(0)
+    return run_steps(script, step, images, labels,
+                     lambda: sched.sample_packed(rng, args.batch_size), steps, warmup,
+                     recipe_launches(net, args.input_size, True)[0])
+
+
+def k2_route_by_name(n: int, h: int, d: int, batch: int) -> dict:
+    """K2's launches by kernel name over one bf16 forward and backward at
+    ``(batch, N, heads, head_dim)`` through ``fused_attention_qkv``, under
+    the profiler, against the route ``backward_is_split`` gives: the
+    one-launch body (``attn_bwd_kernel``) or the split route
+    (``attn_split_dq_kernel`` then ``attn_split_dkv_kernel``)."""
+    import torch
+    from vit_search_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(n + h + d)
+    qkv = torch.randn(batch, n, 3 * h * d, device="cuda", generator=gen).to(torch.bfloat16)
+    do = torch.randn(batch, n, h * d, device="cuda", generator=gen).to(torch.bfloat16)
+    leaf = qkv.requires_grad_()
+
+    def step():   # through autograd, as the model calls it
+        torch.autograd.grad(A.fused_attention_qkv(leaf, d ** -0.5, h), leaf, do)
+
+    # the profiler now and then returns a trace without device events (the
+    # card's kernel records missed): profile again until it holds some
+    for _ in range(5):
+        _, _, _, top = profile_kernels(step, top=50)
+        if top:
+            break
+    calls = {name: sum(c for key, _, c in top if name in key)
+             for name in ("attn_bwd_kernel", "attn_split_dq_kernel", "attn_split_dkv_kernel")}
+    split = A.backward_is_split(n, d)
+    want = ({"attn_bwd_kernel": 0, "attn_split_dq_kernel": 1, "attn_split_dkv_kernel": 1}
+            if split else
+            {"attn_bwd_kernel": 1, "attn_split_dq_kernel": 0, "attn_split_dkv_kernel": 0})
+    if calls != want:
+        raise AssertionError(f"K2 at N={n}, D={d}: launches by name {calls}, the "
+                             f"{'split' if split else 'one-launch'} route expects {want}")
+    return {"bwd_route": "split" if split else "one launch", "launches_by_name": calls}
+
+
+def recipe_k2_routes() -> dict:
+    """:func:`k2_route_by_name` at every stage of ``RECIPE_KERNEL_SCRIPTS``'
+    nets at each script's batch, ``{"N,H,D": ...}``. Run before any other
+    profiler session of the process: late in a long run a session has twice
+    recorded none of K2's launches."""
+    routes = {}
+    for _, script in RECIPE_KERNEL_SCRIPTS:
+        _, argv = recipe_argv(script, "", 1)
+        batch = int(argv[argv.index("--batch-size") + 1])
+        for n, _, h, d in recipe_stages(script):
+            routes[f"{n},{h},{d}"] = k2_route_by_name(n, h, d, batch)
+    return routes
+
+
+def check_recipe_kernels(reps: int, routes: dict):
+    """K1/K2 (bf16) against their plain versions at the widest heads of each
+    stage of ``RECIPE_KERNEL_SCRIPTS``' nets, at each script's batch, with
+    K2's route by kernel name from ``routes`` (``recipe_k2_routes``); K3/K4
+    at each stage width of the supernets among them. Path ``recipes``; each
+    entry names its script."""
+    entries = []
+    for label, script in RECIPE_KERNEL_SCRIPTS:
+        _, argv = recipe_argv(script, "", 1)
+        batch = int(argv[argv.index("--batch-size") + 1])
+        supernet = argv[argv.index("--model") + 1].endswith("_supernet")
+        for i, (n, c, h, d) in enumerate(recipe_stages(script)):
+            stage = f"{label} stage {i + 1}"
+            for e in check_attention(stage, reps, batch, "recipes", backward=True,
+                                     nhd=(n, h, d)):
+                e["recipe"] = script
+                if e["name"] == "attention_qkv_bwd":
+                    e.update(routes[f"{n},{h},{d}"])
+                entries.append(e)
+            if supernet:
+                for e in check_masked_ln(i, reps, batch, "recipes", backward=True, nc=(n, c)):
+                    e.update(recipe=script, stage=stage)
+                    entries.append(e)
+    return entries
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
@@ -2387,6 +2846,18 @@ def main(argv=None) -> int:
     log("K3/K4 registers (ptxas): " + "; ".join(
         f"{r['kernel']} {r['registers']} regs, spills {r['spill_stores']}/{r['spill_loads']} B"
         for r in regs))
+
+    # K2's routes at the recipes' shapes by kernel name, in the process's
+    # first profiler session
+    report["recipe_k2_routes"] = k2_routes = recipe_k2_routes()
+    log(f"K2's routes at the recipes' shapes by kernel name: {k2_routes}")
+
+    # the image folder of the loader, cli, dist, study and recipes phases,
+    # made on the host while the card runs the kernel checks
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    folder = os.path.join(scratch, "synthfolder")
+    maker, folder_s = start_folder(folder)
+    atexit.register(stop, maker, scratch)
 
     entries = []
     for stage in range(len(STAGES)):
@@ -2431,6 +2902,13 @@ def main(argv=None) -> int:
         f"K8/K9 {shapes['launches']['attention_qkv_t_fwd']}/"
         f"{shapes['launches']['attention_qkv_t_bwd']}")
 
+    t0 = time.perf_counter()
+    maker.join()
+    if maker.exitcode != 0:
+        raise AssertionError(f"make_folder: exit {maker.exitcode}")
+    report["folder_s"], report["folder_wait_s"] = folder_s.value, time.perf_counter() - t0
+    log(f"folder made in {folder_s.value:.1f} s beside the kernel checks; waited "
+        f"{report['folder_wait_s']:.1f} s for it")
     report["train"] = tr = train(STEPS, WARMUP)
     print(f"train: {tr['imgs_per_s']:.1f} imgs/s ({tr['step_ms']:.1f} ms/step, batch "
           f"{BATCH}) peak memory {tr['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
@@ -2464,11 +2942,8 @@ def main(argv=None) -> int:
           f"({100 * ds['teacher_share']:.1f}% of the step)", flush=True)
     # the host pipeline and the training CLI on a synthetic image folder, which
     # the dist phase's cli.launch run reads too
-    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        folder = os.path.join(scratch, "synthfolder")
         t0 = time.perf_counter()
-        report["folder_s"] = make_folder(folder)
         report["loader"] = ld = loader(folder)
         ld["seconds"] = time.perf_counter() - t0
         prof = ld["profiled_step"]
@@ -2519,10 +2994,18 @@ def main(argv=None) -> int:
               f"({comm['grad_bytes'] / 2**20:.1f} MiB); cli.launch on NCCL (WORLD_SIZE=1) "
               f"{LAUNCH_STEPS} steps in {dt['launch']['seconds']:.1f} s; phase "
               f"{dt['seconds']:.1f} s on {card}", flush=True)
-        torch.cuda.empty_cache()   # the card's memory to the study's processes
-        report["study"] = st = study(scratch)
+        torch.cuda.empty_cache()   # the card's memory to the study's and recipes' runs
+        # the study's processes run beside the recipes phase: both wait on the
+        # host's decode most of the time, and the card holds both
+        started = start_study(scratch)
+        try:
+            report["recipes"] = rc = recipes(folder, scratch)
+            report["study"] = st = study(scratch, started)
+        finally:
+            end_session(started[0])
         sm, stages, gd = st["summary"], st["timing"]["stages"], st["gelu_delta"]
-        print(f"study: accuracy_study at {STUDY_SIZE} px in {st['wall_s']:.1f} s ("
+        print(f"study: accuracy_study at {STUDY_SIZE} px beside the recipes phase, done "
+              f"{st['wall_s']:.1f} s after its start ("
               + ", ".join(f"{x['stage']} {x['seconds']} s" for x in stages)
               + f"); winner {sm['winner_mac'] / 1e6:.1f}M MACs acc1 "
               f"{sm['winner_final_acc1']:.2f}, random {sm['random_mac'] / 1e6:.1f}M acc1 "
@@ -2534,8 +3017,27 @@ def main(argv=None) -> int:
               f"{st['kernel_attention_blocks']} of the winner's "
               f"{st['winner_attention_blocks']} attention blocks, those at N >= 8) "
               f"on {card}", flush=True)
+        slowest = max(rc["scripts"].items(), key=lambda kv: kv[1]["peak_bytes"])
+        print(f"recipes: {len(rc['scripts'])} published scripts chained through the port's "
+              f"CLIs in {rc['seconds']:.1f} s, each at its own batch"
+              + "".join(f", {s} at {b} (cut)" for s, b in RECIPE_BATCH_CUTS.items())
+              + f"; the largest peak {slowest[1]['peak_bytes'] / 2**30:.2f} GiB "
+              f"({slowest[0]}) on {card}", flush=True)
     finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+        stop(maker, scratch)
+    # the kernels at the recipes' shapes, and one profiled step of the Small
+    # supernet from device batches
+    t0 = time.perf_counter()
+    entries += check_recipe_kernels(REPS, k2_routes)
+    log(f"K1-K4 agree with their plain versions at the recipes' shapes "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["recipe_profile"] = pr = recipe_profile(RECIPE_KERNEL_SCRIPTS[0][1], 2, 1)
+    prof = pr["profiled_step"]
+    print(f"{RECIPE_KERNEL_SCRIPTS[0][1]} step from device batches: {pr['imgs_per_s']:.1f} "
+          f"imgs/s ({pr['step_ms']:.1f} ms/step, batch {pr['batch']}) peak memory "
+          f"{pr['max_memory_allocated_bytes'] / 2**30:.2f} GiB; profiled step "
+          f"{prof['device_busy_ms']:.1f} ms busy of {prof['wall_ms']:.1f} ms on {card}",
+          flush=True)
     # the lab last: its full-width plain comparisons stay off the train and
     # search lines
     report["lab"] = lab = lab_path()
@@ -2562,7 +3064,11 @@ def main(argv=None) -> int:
     by_name = {k.name: k for k in kernels.KERNELS}
     for e in entries:
         k = by_name[e["name"]]
-        run, per = runs[e["path"]]
+        if e["path"] == "recipes":
+            run = rc["scripts"][e["recipe"]]
+            per = run["per_step"]
+        else:
+            run, per = runs[e["path"]]
         e.update(route="cuda", source=k.source, replaces=k.replaces, batch=e["shape"]["B"],
                  launches=run["launches"][e["name"]], launches_per_step=per[e["name"]],
                  kernel_ms=e["ms"])

@@ -167,3 +167,25 @@ def test_unpack_checkpoint_archive_refuses_tar_slip_and_reads_xz(tmp_path):
         tf.add(tmp_path / "good.tar.xz", arcname="not_a_checkpoint")
     with pytest.raises(FileNotFoundError, match="no checkpoint directory"):
         unpack_checkpoint_archive(str(empty))
+
+
+def test_an_epochs_names_share_one_written_state(tmp_path):
+    """``best``, ``best_ema`` and ``epoch@N`` of an epoch are ``checkpoint``'s
+    file, written once; the next epoch's ``checkpoint`` replaces its own file
+    and leaves them holding the earlier state."""
+    step = _fit(_step(), 1)
+    mgr = CheckpointManager(str(tmp_path), snapshot_every=1)
+    mgr.save_epoch(step, epoch=0, metadata={"acc": 1.0}, is_best=True, is_best_ema=True)
+    inode = os.stat(tmp_path / "checkpoint" / "state.pt").st_ino
+    for name in ("epoch@0", "best", "best_ema"):
+        assert os.stat(tmp_path / name / "state.pt").st_ino == inode, name
+    before = restore_raw(str(tmp_path / "best"))
+    _fit(step, 1)
+    mgr.save_epoch(step, epoch=1, metadata={"acc": 0.5})
+    assert os.stat(tmp_path / "checkpoint" / "state.pt").st_ino != inode
+    assert os.stat(tmp_path / "best" / "state.pt").st_ino == inode
+    after = restore_raw(str(tmp_path / "best"))
+    assert after["step"] == before["step"] == 1 and after["metadata"]["epoch"] == 0
+    assert restore_raw(str(tmp_path / "checkpoint"))["step"] == 2
+    for k, v in before["params"].items():
+        assert torch.equal(after["params"][k], v), k

@@ -469,6 +469,63 @@ LN_IDS = ["stage1", "stage2", "stage3", "stage3_b2048", "rows_lt_sms", "ragged",
           "stage3_batch1", "n1"]
 
 
+# (N, heads, head_dim) at each stage's widest heads of the published recipes
+# first run on the card in the recipes phase: the Small supernet, the
+# sr_tiny_666 supernet, the reference net, the 280 px Medium finetune
+RECIPE_ATTENTION = [(257, 8, 32), (65, 16, 48), (17, 16, 64), (257, 4, 64), (65, 8, 64),
+                    (17, 12, 64), (257, 3, 64), (65, 6, 64), (401, 8, 32), (101, 16, 48),
+                    (26, 16, 64)]
+RECIPE_IDS = [f"n{n}h{h}d{d}" for n, h, d in RECIPE_ATTENTION]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,d", RECIPE_ATTENTION, ids=RECIPE_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_kernels_take_the_recipes_shapes(cuda, n, h, d, dtype):
+    """K1/K2 through the model's autograd entry point at the recipes'
+    shapes, one launch each; the bf16 backward on its one-launch body (N <=
+    624 at D = 32, and N = 257 at D = 64 fits)."""
+    qkv, do = _projection(cuda, n, h, d, dtype, b=2)
+    scale = d ** -0.5
+    before = (A.K1.launches, A.K2.launches)
+    leaf = qkv.clone().requires_grad_()
+    out = A.fused_attention_qkv(leaf, scale, h)
+    (dqkv,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    assert (A.K1.launches, A.K2.launches) == (before[0] + 1, before[1] + 1)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(out, A.attention_qkv_plain(qkv, scale, h), tol)
+    _close(dqkv, A.attention_qkv_bwd_plain(qkv, do, scale, h), tol)
+    assert not A.backward_is_split(n, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c", [(8, 257, 320), (8, 65, 640), (8, 17, 1280),
+                                   (1024, 17, 1280)], ids=["c320", "c640", "c1280", "c1280_b1024"])
+def test_masked_ln_kernels_take_the_small_supernets_widths(cuda, b, n, c):
+    """K3/K4 at the Small supernet's stage widths, which are not on the
+    tiled path's ladder of 8 / 16 / 32 lanes at C = 256 / 512 / 1024."""
+    x, mask, w, bias, g = _ln_inputs(cuda, b, n, c, torch.bfloat16, False, seed=b + n + c)
+    plan = M.launch_plan(b * n, n, c, x.element_size(), False, True, kernels.num_sms(x), True)
+    assert plan.tile_rows > 0
+    _ln_against_plain(x, mask, w, bias, g)
+
+
+@pytest.mark.gpu
+def test_global_norm_on_the_card_matches_float64(cuda):
+    """The train step's gradient norm over gradients of the Small
+    supernet's largest shapes, on the card."""
+    from vit_search_torch.train import global_norm
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    grads = [torch.randn(shape, device=cuda, generator=gen) * 0.01 + 0.003
+             for shape in ((3840, 1280), (1280, 3840), (1000, 1280))]
+    exact = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    got = global_norm(grads)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert abs(float(got) - exact) <= 1e-6 * exact
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,c,dtype,shared_mask,path", LN_CASES, ids=LN_IDS)
 def test_masked_ln_kernels_take_every_shape(cuda, b, n, c, dtype, shared_mask, path):

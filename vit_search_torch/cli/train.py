@@ -23,6 +23,10 @@ Differences from the JAX CLI:
   any rank stops every rank at the same step (the flag is max-all-reduced
   where the metrics sync);
 - ``--gelu`` goes to the model as an argument; no environment variable;
+- ``best`` and ``best_ema`` are also written on an evaluated epoch while
+  the checkpoint directory holds none, so a run whose evals all scored 0%
+  still leaves the checkpoints that the finetune and eval scripts read (the
+  JAX CLI writes them only on an accuracy above the last maximum, from 0);
 - checkpoints are the port's (``train.checkpoint``); ``--resume`` also
   takes a local reference ``.pth(.tar)`` and a local archive;
 - the KD teacher is rebuilt from its checkpoint's ``model``,
@@ -697,11 +701,17 @@ def main(args) -> dict:
             if args.model_ema and ema_tree() is not None:
                 ema_stats = run_eval(on_device(ema_tree()))
 
+            # `best` (`best_ema`) on a new maximum, and on an evaluated epoch
+            # of a run whose directory holds none yet: the scripts that read
+            # them (the finetunes, the eval) find them even after epochs that
+            # scored 0%, where the JAX CLI (`acc1 > max_acc` from 0.0) and the
+            # reference write none
             acc1 = test_stats.get("acc1", 0.0)
-            is_best = acc1 > max_acc
+            is_best = bool(test_stats) and (acc1 > max_acc or not (ckpt and ckpt.exists("best")))
             max_acc = max(max_acc, acc1)
             ema_acc1 = ema_stats.get("acc1", 0.0)
-            is_best_ema = ema_acc1 > max_ema_acc
+            is_best_ema = bool(ema_stats) and (ema_acc1 > max_ema_acc
+                                               or not (ckpt and ckpt.exists("best_ema")))
             max_ema_acc = max(max_ema_acc, ema_acc1)
             logger.info(f"Max accuracy: {max_acc:.2f}%")
 

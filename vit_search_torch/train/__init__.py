@@ -7,8 +7,8 @@ from .engine import (StepDraws, TrainConfig, TrainStep, make_eval_step,
                      make_per_example_correct_step, make_teacher, make_train_step, normalize)
 from .losses import (cross_entropy, distillation_loss, label_smoothing_cross_entropy,
                      soft_target_cross_entropy, top_k_correct)
-from .optim import (OptimConfig, clip_by_global_norm_, lr_schedule, make_optimizer,
-                    timm_epoch_lrs, weight_decay_groups)
+from .optim import (OptimConfig, clip_by_global_norm_, global_norm, lr_schedule,
+                    make_optimizer, timm_epoch_lrs, weight_decay_groups)
 from .state import TrainState, ema_update, init_ema
 
 __all__ = [
@@ -22,6 +22,7 @@ __all__ = [
     "cross_entropy",
     "distillation_loss",
     "ema_update",
+    "global_norm",
     "init_ema",
     "label_smoothing_cross_entropy",
     "load_finetune",

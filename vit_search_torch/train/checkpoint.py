@@ -4,7 +4,9 @@ Port of vit_search_tpu/train/checkpoint.py, the reference checkpoint
 protocol (main.py:401-424,501-523):
 
 - a per-epoch ``checkpoint``, ``epoch@N`` snapshots every ``snapshot_every``
-  epochs, ``best`` and ``best_ema`` on a new best accuracy;
+  epochs, ``best`` and ``best_ema`` on a new best accuracy; the epoch's
+  other names hard-link ``checkpoint``'s file, so the state is written
+  once (the JAX package writes each name in full);
 - ``restore`` puts a checkpoint back into a train step;
 - :func:`restore_raw` reads one without a target, for the finetune
   (:func:`load_finetune`, which prefers the EMA weights) and for supernet
@@ -68,14 +70,37 @@ class CheckpointManager:
 
     def save_epoch(self, step, epoch: int, metadata: Optional[Dict[str, Any]] = None,
                    is_best: bool = False, is_best_ema: bool = False) -> None:
+        """``checkpoint``, and the epoch's other names (``epoch@N``, ``best``,
+        ``best_ema``) as the same state: its file hard-linked, written once
+        (a later save of ``checkpoint`` replaces its file, not the links)."""
         meta = dict(metadata or {}, epoch=epoch)
         self.save("checkpoint", step, meta)
+        names = []
         if self.snapshot_every and (epoch + 1) % self.snapshot_every == 0:
-            self.save(f"epoch@{epoch}", step, meta)
+            names.append(f"epoch@{epoch}")
         if is_best:
-            self.save("best", step, meta)
+            names.append("best")
         if is_best_ema and step.state.ema_params is not None:
-            self.save("best_ema", step, meta)
+            names.append("best_ema")
+        for name in names:
+            self._same_as("checkpoint", name, meta)
+
+    def _same_as(self, src: str, name: str, metadata: Dict[str, Any]) -> None:
+        """Checkpoint ``name`` holding ``src``'s state file: a hard link, or a
+        copy where the file system has no links."""
+        os.makedirs(self._path(name), exist_ok=True)
+        source = os.path.join(self._path(src), STATE_FILE)
+        target = os.path.join(self._path(name), STATE_FILE)
+        tmp = f"{target}.tmp"
+        if os.path.lexists(tmp):
+            os.remove(tmp)
+        try:
+            os.link(source, tmp)
+        except OSError:
+            shutil.copyfile(source, tmp)
+        os.replace(tmp, target)
+        with open(f"{self._path(name)}.metadata.json", "w") as f:
+            json.dump(metadata, f)
 
     def restore(self, name: str, step) -> Dict[str, Any]:
         """Load checkpoint ``name`` into ``step`` (a ``TrainStep``) in place;

@@ -59,7 +59,7 @@ from ..device import resolve_device
 from ..models.supernet import build_arch_masks
 from ..ops.row_draws import RowShard
 from . import losses
-from .optim import clip_by_global_norm_
+from .optim import clip_by_global_norm_, global_norm
 from .state import TrainState, ema_update, init_ema
 
 
@@ -266,7 +266,7 @@ class TrainStep:
         # batch's, and so is the mean of their losses
         parallel.all_reduce_mean_(grads)
         loss = parallel.all_reduce_sum(loss.detach()) / self.world
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grad_norm = global_norm(grads)
         clip_grad = self.optimizer.param_groups[0].get("clip_grad")
         if clip_grad:
             clip_by_global_norm_(grads, clip_grad, grad_norm)
