@@ -910,6 +910,47 @@ def test_finetune_392_step_takes_the_split_route(cuda):
 
 
 @pytest.mark.gpu
+def test_phase_spans_stay_off_the_device_timeline(cuda):
+    """On the card the port's ``vst.*`` spans are host operations only (none
+    is CUDA-typed, as a ``record_function`` annotation's mirror would be),
+    and a bf16 supernet step's host waits on the card at least once inside
+    ``vst.train.step``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from test_torch_trace import CLASSES, IMG, NET, PATCH, SPACE
+    from vit_search_torch.models import SupernetSchedules, VisionTransformerSR
+    from vit_search_torch.train import (OptimConfig, TrainConfig, make_optimizer,
+                                        make_train_step)
+
+    batch = 8
+    model = VisionTransformerSR(NET, img_size=IMG, patch_size=PATCH, num_classes=CLASSES,
+                                patch_output=True, dtype=torch.bfloat16)
+    sched = SupernetSchedules(NET, SPACE, example_per_arch=2, num_warmup_epochs=0)
+    step = make_train_step(model, make_optimizer(OptimConfig(base_lr=1e-3), model),
+                           TrainConfig(num_classes=CLASSES, mixup_mode="token", patch_len=2,
+                                       erasing_prob=0.25), counts_unpack=sched.unpack)
+    rng = np.random.default_rng(0)
+    images = torch.randint(0, 256, (batch, IMG, IMG, 3), dtype=torch.uint8, device=cuda)
+    labels = torch.randint(0, CLASSES, (batch,), device=cuda)
+    step(images, labels, sched.sample_packed(rng, batch))       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(images, labels, sched.sample_packed(rng, batch))
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e for e in events if e.name.startswith("vst.")]
+    assert {e.name for e in spans} >= {"vst.supernet.sample", "vst.train.step",
+                                       "vst.train.forward", "vst.train.update"}
+    assert not [e.name for e in spans if e.device_type == DeviceType.CUDA]
+    (outer,) = [e.time_range for e in spans if e.name == "vst.train.step"]
+    syncs = [e for e in events if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                             "cudaEventSynchronize")
+             and outer.start <= e.time_range.start < outer.end]
+    assert syncs
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("src,dst", [(16, 28), (28, 16)], ids=["grow", "shrink"])
 def test_pos_embed_interpolation_of_cuda_tensors(cuda, src, dst):
     """The resize of tables on the card equals the CPU's within 1e-5, with

@@ -32,7 +32,8 @@ Differences from the JAX CLI:
 - the KD teacher is rebuilt from its checkpoint's ``model``,
   ``nb_classes``/``num_classes``, ``network_def``, ``input_size`` and
   ``gelu`` arguments where present;
-- ``--profile-dir`` writes a ``torch.profiler`` trace.
+- ``--profile-dir`` writes a ``torch.profiler`` trace, the port's
+  ``vst.*`` phase spans (``utils.trace``) beside the kernels.
 
 Every train step draws from ``(seed, step)`` (``train.engine``) and the keep
 counts from a ``(seed, epoch)`` host generator, so a run resumed after a
@@ -43,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import itertools
 import json
 import os
 import signal
@@ -621,20 +621,11 @@ def main(args) -> dict:
 
             # device copies run `depth` batches ahead of the step loop
             feed = data.prefetch_to_device(loader_train, device)
-            device_batches = feed
-            if os.environ.get("VST_BENCH_REUSE_BATCH") == "1":
-                # CLI-path benchmarking: reuse the first device batch for the
-                # whole epoch, taking host decode out of the measurement while
-                # keeping the entire CLI step path (sampling, step, metric
-                # drains, epoch accounting)
-                first = next(feed)
-                feed.close()
-                device_batches = itertools.repeat(first, steps_per_epoch)
             profiler = None
             epoch_t0 = time.time()
             steps_done = 0
             for it, (images, labels) in enumerate(metric_logger.log_every(
-                    device_batches, args.print_freq, header=f"Epoch: [{epoch}]",
+                    feed, args.print_freq, header=f"Epoch: [{epoch}]",
                     total=steps_per_epoch)):
                 if it >= steps_per_epoch:
                     break
@@ -692,11 +683,7 @@ def main(args) -> dict:
             train_stats["imgs_per_sec"] = epoch_imgs_per_sec
             logger.info(f"Averaged stats: {metric_logger}")
 
-            # VST_BENCH_SKIP_EVAL: benchmarking-only companion to
-            # VST_BENCH_REUSE_BATCH: long synthetic epochs need no per-epoch eval
-            skip_eval = (os.environ.get("VST_BENCH_REUSE_BATCH") == "1"
-                         and os.environ.get("VST_BENCH_SKIP_EVAL") == "1")
-            test_stats = {} if skip_eval else run_eval()
+            test_stats = run_eval()
             ema_stats = {}
             if args.model_ema and ema_tree() is not None:
                 ema_stats = run_eval(on_device(ema_tree()))

@@ -22,6 +22,8 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import span
+
 
 def _host_tensors(batch) -> Tuple[torch.Tensor, torch.Tensor]:
     images, labels = batch
@@ -46,7 +48,8 @@ def prefetch_to_device(batches: Iterable, device, depth: int = 2
 
     def enqueue() -> bool:
         try:
-            batch = next(it)
+            with span("vst.data.next"):
+                batch = next(it)
         except StopIteration:
             return False
         # A pinned buffer is allocated per batch, never refilled by this

@@ -29,6 +29,7 @@ import torch
 
 from ..arch import network_def as nd
 from ..ops.masking import ChannelDropSchedule, expand_arch_counts, make_channel_mask
+from ..utils.trace import span
 
 ARCH_MODES = ("single", "hybrid", "multi")
 
@@ -120,7 +121,8 @@ class SupernetSchedules:
         return np.concatenate(parts)
 
     def sample_packed(self, rng: np.random.Generator, batch: int) -> np.ndarray:
-        return self.pack(self.sample(rng, batch), batch)
+        with span("vst.supernet.sample"):
+            return self.pack(self.sample(rng, batch), batch)
 
     def unpack(self, vector, batch: int) -> Dict:
         """Inverse of :meth:`pack` (works on numpy arrays and tensors)."""

@@ -26,6 +26,7 @@ import torch
 from .. import parallel
 from ..models.supernet import SupernetSchedules, build_arch_masks
 from ..train.engine import TrainConfig, check_on, model_device, normalize
+from ..utils.trace import span
 
 SCORE_HEADS = ("cls", "dst", "joint")
 # the engine's ImageNet mean and std (the reference normalizes search-eval
@@ -117,25 +118,29 @@ class BatchedSupernetEvaluator:
         return torch.as_tensor(np.asarray(v), device=self.device)
 
     def _score_chunk(self, sub_defs: Sequence) -> np.ndarray:
-        counts = self.schedules.counts_for_subnets(sub_defs)
-        counts = {"embed": None if counts["embed"] is None
-                  else torch.as_tensor(counts["embed"], device=self.device),
-                  "slots": {slot: {k: torch.as_tensor(v, device=self.device)
-                                   for k, v in site.items()}
-                            for slot, site in counts["slots"].items()}}
-        # correct counts and the valid-row total stay on the device; the
-        # host reads them once per chunk
-        correct = torch.zeros(len(sub_defs), dtype=torch.float64, device=self.device)
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for batch in self.loader:
-            images = self._tensor(batch[0], "images")
-            labels = self._tensor(batch[1], "labels")
-            valid = (self._tensor(batch[2], "valid") if len(batch) > 2
-                     else torch.ones(images.shape[0], device=self.device))
-            per_candidate, valid_sum = self._step(images, labels, valid, counts)
-            correct += per_candidate
-            total += valid_sum
-        sums = parallel.all_reduce_sum(torch.cat([correct, total.view(1)])).cpu().numpy()
+        with span("vst.search.chunk"):
+            with span("vst.search.counts"):
+                counts = self.schedules.counts_for_subnets(sub_defs)
+                counts = {"embed": None if counts["embed"] is None
+                          else torch.as_tensor(counts["embed"], device=self.device),
+                          "slots": {slot: {k: torch.as_tensor(v, device=self.device)
+                                           for k, v in site.items()}
+                                    for slot, site in counts["slots"].items()}}
+                # correct counts and the valid-row total stay on the device; the
+                # host reads them once per chunk
+                correct = torch.zeros(len(sub_defs), dtype=torch.float64, device=self.device)
+                total = torch.zeros((), dtype=torch.float64, device=self.device)
+            for batch in self.loader:
+                with span("vst.search.batch"):
+                    images = self._tensor(batch[0], "images")
+                    labels = self._tensor(batch[1], "labels")
+                    valid = (self._tensor(batch[2], "valid") if len(batch) > 2
+                             else torch.ones(images.shape[0], device=self.device))
+                    per_candidate, valid_sum = self._step(images, labels, valid, counts)
+                    correct += per_candidate
+                    total += valid_sum
+            with span("vst.search.readback"):
+                sums = parallel.all_reduce_sum(torch.cat([correct, total.view(1)])).cpu().numpy()
         return sums[:-1] / max(float(sums[-1]), 1.0) * 100.0
 
     def score(self, network_defs: Sequence,

@@ -58,6 +58,7 @@ from ..data.mixup import MixupDraws, TokenMixDraws, mixup_cutmix, switch_token_m
 from ..device import resolve_device
 from ..models.supernet import build_arch_masks
 from ..ops.row_draws import RowShard
+from ..utils.trace import span
 from . import losses
 from .optim import clip_by_global_norm_, global_norm
 from .state import TrainState, ema_update, init_ema
@@ -190,95 +191,104 @@ class TrainStep:
                  draws: Optional[StepDraws] = None) -> Dict:
         model, config = self.model, self.config
         draws = draws or StepDraws()
-        rng, generator = step_generators(self.seed, self.state.step, self.device)
-        model.train()
+        with span("vst.train.step"):
+            with span("vst.train.inputs"):
+                rng, generator = step_generators(self.seed, self.state.step, self.device)
+                model.train()
+                batch = images.shape[0]
+                global_batch, lo = batch * self.world, self.rank * batch
+                # erasing and mixing draw at the global shape, and a row's mixing
+                # partner may live on another process: they see the whole batch
+                gather = self.world > 1 and (config.mixup_mode != "none"
+                                             or config.erasing_prob > 0)
+                if gather:
+                    images, labels = parallel.all_gather(images), parallel.all_gather(labels)
+                images = normalize(images, config)
+                images = random_erasing(images, config.erasing_prob, config.erasing_mode,
+                                        config.erasing_count, draws=draws.erasing, rng=rng,
+                                        generator=generator)
+            with span("vst.train.masks"):
+                if counts is not None and self.counts_unpack is not None:
+                    counts = self.counts_unpack(torch.as_tensor(counts, device=images.device),
+                                                global_batch)
+                masks = _rows(build_arch_masks(counts, model.network_def, global_batch,
+                                               device=images.device), lo, batch, self.world)
+            with span("vst.train.mix"):
+                targets = patch_targets = None
+                if config.mixup_mode == "token":
+                    images, targets, patch_targets = switch_token_mix(
+                        images, labels, config.patch_len, config.num_classes,
+                        config.smoothing, draws=draws.mix, rng=rng)
+                elif config.mixup_mode == "mixup":
+                    images, targets = mixup_cutmix(
+                        images, labels, config.num_classes, config.mixup_alpha,
+                        config.cutmix_alpha, config.mixup_switch_prob, config.smoothing,
+                        config.mixup_prob, mode=config.mixup_elem_mode,
+                        cutmix_minmax=config.cutmix_minmax, draws=draws.mixup, rng=rng)
+                if gather:
+                    images, labels, targets, patch_targets = (
+                        None if t is None else t[lo:lo + batch]
+                        for t in (images, labels, targets, patch_targets))
+            with span("vst.train.forward"):
+                drop_keeps, dropout_keeps = draws.drop_keeps, draws.dropout_keeps
+                if self.world > 1:
+                    # per-example draws at the global shape, cut to this process's rows
+                    generator = RowShard(generator, global_batch, lo, lo + batch)
+                    drop_keeps = _rows(drop_keeps, lo, batch, self.world)
+                    dropout_keeps = _rows(dropout_keeps, lo, batch, self.world)
+                teacher_logits = None
+                if self.teacher is not None and config.mixup_mode != "token":
+                    with torch.no_grad():
+                        teacher_logits = self.teacher(images)
+                outputs = model(images, masks, patch_output_type="seq",
+                                drop_keeps=drop_keeps, generator=generator,
+                                dropout_keeps=dropout_keeps)
 
-        batch = images.shape[0]
-        global_batch, lo = batch * self.world, self.rank * batch
-        # erasing and mixing draw at the global shape, and a row's mixing
-        # partner may live on another process: they see the whole batch
-        gather = self.world > 1 and (config.mixup_mode != "none" or config.erasing_prob > 0)
-        if gather:
-            images, labels = parallel.all_gather(images), parallel.all_gather(labels)
-        images = normalize(images, config)
-        images = random_erasing(images, config.erasing_prob, config.erasing_mode,
-                                config.erasing_count, draws=draws.erasing, rng=rng,
-                                generator=generator)
-        if counts is not None and self.counts_unpack is not None:
-            counts = self.counts_unpack(torch.as_tensor(counts, device=images.device),
-                                        global_batch)
-        masks = _rows(build_arch_masks(counts, model.network_def, global_batch,
-                                       device=images.device), lo, batch, self.world)
-
-        targets = patch_targets = None
-        if config.mixup_mode == "token":
-            images, targets, patch_targets = switch_token_mix(
-                images, labels, config.patch_len, config.num_classes, config.smoothing,
-                draws=draws.mix, rng=rng)
-        elif config.mixup_mode == "mixup":
-            images, targets = mixup_cutmix(
-                images, labels, config.num_classes, config.mixup_alpha, config.cutmix_alpha,
-                config.mixup_switch_prob, config.smoothing, config.mixup_prob,
-                mode=config.mixup_elem_mode, cutmix_minmax=config.cutmix_minmax,
-                draws=draws.mixup, rng=rng)
-        if gather:
-            images, labels, targets, patch_targets = (
-                None if t is None else t[lo:lo + batch]
-                for t in (images, labels, targets, patch_targets))
-        drop_keeps, dropout_keeps = draws.drop_keeps, draws.dropout_keeps
-        if self.world > 1:
-            # per-example draws at the global shape, cut to this process's rows
-            generator = RowShard(generator, global_batch, lo, lo + batch)
-            drop_keeps = _rows(drop_keeps, lo, batch, self.world)
-            dropout_keeps = _rows(dropout_keeps, lo, batch, self.world)
-        teacher_logits = None
-        if self.teacher is not None and config.mixup_mode != "token":
-            with torch.no_grad():
-                teacher_logits = self.teacher(images)
-        outputs = model(images, masks, patch_output_type="seq",
-                        drop_keeps=drop_keeps, generator=generator,
-                        dropout_keeps=dropout_keeps)
-
-        if config.mixup_mode == "token":
-            cls_pred, patch_pred = outputs
-            loss = (losses.soft_target_cross_entropy(cls_pred, targets)
-                    + losses.soft_target_cross_entropy(patch_pred, patch_targets))
-        else:
-            cls_pred, dst_pred = outputs if isinstance(outputs, tuple) else (outputs, outputs)
-            if config.mixup_mode == "mixup":
-                loss = losses.soft_target_cross_entropy(cls_pred, targets)
-            elif config.smoothing > 0:
-                loss = losses.label_smoothing_cross_entropy(cls_pred, labels, config.smoothing)
-            else:
-                loss = losses.cross_entropy(cls_pred, labels)
-            if teacher_logits is not None:
-                kd = losses.distillation_loss(dst_pred, teacher_logits, config.hard_distill,
-                                              config.distill_temperature)
-                loss = loss * (1.0 - config.distill_alpha) + kd * config.distill_alpha
-
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in self.params:       # optax updates every leaf, used or not
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        # equal shards: the mean of the processes' gradients is the global
-        # batch's, and so is the mean of their losses
-        parallel.all_reduce_mean_(grads)
-        loss = parallel.all_reduce_sum(loss.detach()) / self.world
-        grad_norm = global_norm(grads)
-        clip_grad = self.optimizer.param_groups[0].get("clip_grad")
-        if clip_grad:
-            clip_by_global_norm_(grads, clip_grad, grad_norm)
-
-        lr = self.schedule(self.state.step) if self.schedule is not None else None
-        if lr is not None:
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-        self.optimizer.step()
-        if self.state.ema_params is not None:
-            ema_update(self.state.ema_params, self.named_params, config.ema_decay)
-        self.state.step += 1
+                if config.mixup_mode == "token":
+                    cls_pred, patch_pred = outputs
+                    loss = (losses.soft_target_cross_entropy(cls_pred, targets)
+                            + losses.soft_target_cross_entropy(patch_pred, patch_targets))
+                else:
+                    cls_pred, dst_pred = (outputs if isinstance(outputs, tuple)
+                                          else (outputs, outputs))
+                    if config.mixup_mode == "mixup":
+                        loss = losses.soft_target_cross_entropy(cls_pred, targets)
+                    elif config.smoothing > 0:
+                        loss = losses.label_smoothing_cross_entropy(cls_pred, labels,
+                                                                    config.smoothing)
+                    else:
+                        loss = losses.cross_entropy(cls_pred, labels)
+                    if teacher_logits is not None:
+                        kd = losses.distillation_loss(dst_pred, teacher_logits,
+                                                      config.hard_distill,
+                                                      config.distill_temperature)
+                        loss = loss * (1.0 - config.distill_alpha) + kd * config.distill_alpha
+            with span("vst.train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                for p in self.params:       # optax updates every leaf, used or not
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads = [p.grad for p in self.params]
+            with span("vst.train.allreduce"):
+                # equal shards: the mean of the processes' gradients is the global
+                # batch's, and so is the mean of their losses
+                parallel.all_reduce_mean_(grads)
+                loss = parallel.all_reduce_sum(loss.detach()) / self.world
+            with span("vst.train.update"):
+                grad_norm = global_norm(grads)
+                clip_grad = self.optimizer.param_groups[0].get("clip_grad")
+                if clip_grad:
+                    clip_by_global_norm_(grads, clip_grad, grad_norm)
+                lr = self.schedule(self.state.step) if self.schedule is not None else None
+                if lr is not None:
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = lr
+                self.optimizer.step()
+            if self.state.ema_params is not None:
+                with span("vst.train.ema"):
+                    ema_update(self.state.ema_params, self.named_params, config.ema_decay)
+            self.state.step += 1
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr}
 
     def state_dict(self) -> Dict:
