@@ -32,7 +32,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    K6-K9 in bf16, and K1/K2 at a head dim of 24; then K1/K2 at the searched
    Tiny net's stages (widest heads, B = 512), at the 392 px finetune's
    three stages (B = 64) and at DeiT-S's shape (B = 512, N = 198, 6 heads
-   of 64);
+   of 64); and K3/K4's dense mode (a net without masks) at
+   ViT-ResNAS-Medium's stage shapes at 224 px (B = 1024) and at 392 px
+   (B = 256) against the plain dense layer norm in float32, timed beside it
+   and ``F.layer_norm``;
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32
    (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
@@ -64,8 +67,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    searched (``searched_net/tiny.sh``): the dense ViT-ResNAS-Tiny at 224 px,
    batch 512, token mixup, drop_path 0.2, random erasing 0.25 (pixel), EMA
    0.99996, AdamW, bf16: every loss finite, the EMA finite and not the
-   parameters, K1/K2 16 launches per step and K3-K5 none (a dense net runs
-   plain layer norms);
+   parameters, K1/K2 16 launches per step, K3/K4's dense mode 35 (a dense
+   net's layer norms: 2 per block, 1 per SR block, 1 final) and the masked
+   K3/K4 and K5 none;
    finetune (``finetune/medium_img-size@392.sh``): ViT-ResNAS-Medium trains
    two steps at 224 px with the EMA, is saved by ``CheckpointManager`` and
    read back by ``restore_raw``; ``load_finetune`` resizes the EMA's
@@ -85,8 +89,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    distillation (alpha 0.5) from ``regnety_160_upsample`` (RegNetY-16GF,
    random weights from seed 0, bf16, eval mode), Mixup/CutMix as above,
    smoothing 0.1, drop_path 0.1, EMA 0.99996: K1/K2 12 launches per step at
-   (198, 6, 64), K3-K5 none; the teacher's forward timed apart by CUDA
-   events, its share of the step reported;
+   (198, 6, 64), K3/K4's dense mode 25, the masked K3/K4 and K5 none; the
+   teacher's forward timed apart by CUDA events, its share of the step
+   reported;
    loader (``super_net/tiny.sh``'s input pipeline): a synthetic image folder
    made by the port's ``make_synthfolder`` in a temporary directory (1000
    classes, 4 images per class at 256 px, 1 per class held out as the
@@ -220,7 +225,7 @@ ATTENTION, MASKED_LNS = 3 * 6, 3 * 6 * 2 + 2 + 1
 KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd",
                 "masked_layer_norm_bwd", "row_sum_sumsq", "attention_fwd", "attention_bwd",
                 "attention_qkv_t_fwd", "attention_qkv_t_bwd", "lab_fwd_t", "lab_bwd_t",
-                "lab_split_dq", "lab_split_dkv")
+                "lab_split_dq", "lab_split_dkv", "layer_norm_fwd", "layer_norm_bwd")
 
 
 def per_pass(**counts):
@@ -276,8 +281,12 @@ FINETUNE_MODEL = "flexible_vit_sr_patch14_392_patch_output"
 FINETUNE_BATCH = 64
 EMA_DECAY = 0.99996
 ERASING = {"erasing_prob": 0.25, "erasing_mode": "pixel"}
-PER_SEARCHED_STEP = per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16)
-PER_FINETUNE_STEP = per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20)
+# (their layer norms on K3/K4's dense mode: 2 x 16 + 2 + 1 and 2 x 20 + 2 +
+# 1, ``dense_lns``)
+PER_SEARCHED_STEP = per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16, layer_norm_fwd=35,
+                             layer_norm_bwd=35)
+PER_FINETUNE_STEP = per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20, layer_norm_fwd=43,
+                             layer_norm_bwd=43)
 # the mixup path: super_net/no_distill/tiny_mh.sh, which trains the supernet
 # with timm Mixup/CutMix (no --use-patch-mixup), its network_def read from
 # the script; the same launches as the train step (K1/K2 18, K3/K4 39)
@@ -288,11 +297,20 @@ MIXUP = {"mixup_mode": "mixup", "mixup_alpha": 0.8, "cutmix_alpha": 1.0,
 # the distill path: the DeiT-S distillation recipe (facebookresearch/deit
 # README: deit_small_distilled_patch16_224 --distillation-type hard
 # --teacher-model regnety_160) at the batch the other paths take (DeiT's
-# global 1024 halved); 12 blocks of 6 heads of 64 at N = 196 + 2 tokens
+# global 1024 halved); 12 blocks of 6 heads of 64 at N = 196 + 2 tokens, 25
+# dense layer norms (no SR block)
 DISTILL_MODEL = "deit_small_distill_patch16_224"
 TEACHER_MODEL = "regnety_160_upsample"
-PER_DISTILL_STEP = per_pass(attention_qkv_fwd=12, attention_qkv_bwd=12)
+PER_DISTILL_STEP = per_pass(attention_qkv_fwd=12, attention_qkv_bwd=12, layer_norm_fwd=25,
+                            layer_norm_bwd=25)
 DISTILL_SHAPES = (("DeiT-S", BATCH, 198, 6, 64),)
+# ViT-ResNAS-Medium's stages at 224 px, (N, C), at searched_net/medium_mac@4.6G.sh's
+# batch: the shapes of its dense layer norms (K3/K4's dense mode)
+MEDIUM_STAGES = ((257, 240), (65, 640), (17, 880))
+MEDIUM_BATCH = 1024
+# (N, C) of the 392 px finetune's three stages, at its script's batch
+MEDIUM_392_STAGES = ((785, 240), (197, 640), (50, 880))
+MEDIUM_392_BATCH = 256
 # loader and cli: super_net/tiny.sh on a synthetic image folder of 1000
 # classes (the heads keep their published width), 4 train images per class
 # at 256 px, 1 per class held out as the sub-val
@@ -503,11 +521,12 @@ def profile_kernels(fn, top: int = 12):
 def ptxas_summary(report: str, prefix: str):
     """``[{kernel, registers, spill_stores, spill_loads}]`` for each kernel of
     ``nvcc -Xptxas -v`` output named ``<prefix>...kernel``, with its element
-    type and chunks per lane read from the mangled template arguments."""
+    type, chunks per lane and mode (masked or dense) read from the mangled
+    template arguments."""
     import re
 
     pattern = re.compile(re.escape(prefix) + r"[a-z_]*kernel(?:I(13__nv_bfloat16|f)"
-                         r"(?:Li(\d+)E)?E)?")
+                         r"(?:Li(\d+)E)?(?:Lb([01])E)?E)?")
     out, cur = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -520,6 +539,8 @@ def ptxas_summary(report: str, prefix: str):
                     label += " bf16" if k.group(1) == "13__nv_bfloat16" else " f32"
                 if k.group(2):
                     label += f" CPL {k.group(2)}"
+                if k.group(3) == "1":
+                    label += " dense"
                 cur = {"kernel": label, "registers": None, "spill_stores": 0,
                        "spill_loads": 0}
                 out.append(cur)
@@ -813,6 +834,89 @@ def k4_launches(entries, reps: int) -> None:
             f"fold {split.get('fold', 0):.4f} ms per call (profiler); graph {e['ms']:.4f} ms")
 
 
+def check_layer_norm(label: str, n: int, c: int, reps: int, batch: int, path: str):
+    """K3 and K4 in their dense mode (the layer norm of a net without masks)
+    at ``(batch, n, c)`` against the plain dense function in float32; ``plain_ms``
+    is that function as the port ran it before (autograd through float32
+    PyTorch ops), ``library_ms`` ``F.layer_norm``, which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.ops import masked_layer_norm as M
+
+    b = batch
+    gen = torch.Generator(device="cuda").manual_seed(600 + c)
+    x = (torch.randn(b, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    g = torch.randn(b, n, c, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(c, device="cuda", generator=gen)
+    bias = torch.randn(c, device="cuda", generator=gen)
+    shape = {"B": b, "N": n, "C": c, "dtype": "bfloat16"}
+    what = f"dense LN {label} (B, N, C) = ({b}, {n}, {c})"
+
+    y, stats = M.layer_norm_fwd_cuda(x, w, bias, 1e-6)
+    gx, gw, gb = M.layer_norm_bwd_cuda(x, w, stats, g)
+    torch.cuda.synchronize()
+    xf, wf, bf = (t.detach().float().requires_grad_() for t in (x, w, bias))
+    ref_y = M.layer_norm_plain(xf, wf, bf, 1e-6)
+    ref_gx, ref_gw, ref_gb = torch.autograd.grad(ref_y, (xf, wf, bf), g.float())
+    with torch.no_grad():
+        mu = xf.mean(-1, keepdim=True)
+        ref_stats = torch.cat([mu, torch.rsqrt((xf - mu).square().mean(-1, keepdim=True)
+                                               + 1e-6)], -1)
+    err_fwd = max(compare(f"{what} y", y, ref_y, BF16_TOL),
+                  compare(f"{what} stats", stats, ref_stats, STATS_TOL))
+    err_bwd = compare(f"{what} gx", gx, ref_gx, BF16_TOL)
+    err_sum = max(compare(f"{what} gw", gw, ref_gw, F32_SUM_TOL),
+                  compare(f"{what} gb", gb, ref_gb, F32_SUM_TOL))
+    del xf, wf, bf, ref_y, ref_gx, ref_stats, mu
+
+    fwd_ms = graph_ms(M.layer_norm_fwd_cuda, (x, w, bias, 1e-6), reps)
+    bwd_ms = graph_ms(M.layer_norm_bwd_cuda, (x, w, stats, g), reps)
+    fwd_call_ms = time_ms(lambda: M.layer_norm_fwd_cuda(x, w, bias, 1e-6), reps)
+    bwd_call_ms = time_ms(lambda: M.layer_norm_bwd_cuda(x, w, stats, g), reps)
+    px, pw, pb = (t.detach().clone().requires_grad_() for t in (x, w, bias))
+
+    def plain():
+        return M.layer_norm_plain(px, pw, pb, 1e-6)
+
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(plain, reps)
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(plain(), (px, pw, pb), g),
+                           reps) - plain_fwd_ms
+    lx, lw, lb = x.clone().requires_grad_(), w.to(x.dtype).requires_grad_(), \
+        bias.to(x.dtype).requires_grad_()
+
+    def layer_norm():
+        return F.layer_norm(lx, (c,), lw, lb, 1e-6)
+
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(layer_norm, reps)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(layer_norm(), (lx, lw, lb), g),
+                         reps) - lib_fwd_ms
+    bfwd = bound(nbytes(x, w, bias, y, stats), 10.0 * x.numel(), PEAK_F32)
+    bbwd = bound(nbytes(x, w, stats, g, gx, gw, gb), 14.0 * x.numel(), PEAK_F32)
+    sms = kernels.num_sms(x)
+    plans = [M.launch_plan(b * n, n, c, 2, False, True, sms, bwd, dense=True).__dict__
+             for bwd in (False, True)]
+    log(f"{what}: K3 dense {fwd_ms:.4f} ms, K4 dense {bwd_ms:.4f} ms (bounds {bfwd[0]:.4f} / "
+        f"{bbwd[0]:.4f}); plain {plain_fwd_ms:.3f} / {plain_bwd_ms:.3f} ms; F.layer_norm "
+        f"{lib_fwd_ms:.4f} / {lib_bwd_ms:.4f} ms")
+    return [dict(name="layer_norm_fwd", stage=label, shape=shape, path=path,
+                 max_abs_err=err_fwd,
+                 tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
+                            f"stats: {STATS_TOL}"),
+                 ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
+                 bound_by=bfwd[1], library_ms=lib_fwd_ms,
+                 library_call="F.layer_norm forward (bf16 weight and bias)", plan=plans[0]),
+            dict(name="layer_norm_bwd", stage=label, shape=shape, path=path,
+                 max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
+                 tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
+                            f"gw/gb: {F32_SUM_TOL}"),
+                 ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_bwd_ms, bound_ms=bbwd[0],
+                 bound_by=bbwd[1], library_ms=lib_bwd_ms,
+                 library_call="F.layer_norm (forward+backward) - forward", plan=plans[1])]
+
+
 def check_row_stats(stage: int, reps: int, batch: int, path: str):
     """K5 against its plain version at ``batch``."""
     import torch
@@ -997,9 +1101,10 @@ def check_reference_net(ln_route: str, dtype=None, dense: bool = False,
     CPU (plain). In bfloat16 the loss, gradient norm and logits are held to
     ``REF_NET_BF16_TOL``; AdamW's first step moves each parameter by about lr
     whatever its gradient, so only the float32 run holds the parameters.
-    ``dense`` trains the same net as a searched net (no masks, so plain layer
-    norms) with random erasing, gradient clipping and the EMA on, the erasing
-    boxes and noise drawn once on the host for both devices; the EMA (decay
+    ``dense`` trains the same net as a searched net (no masks, so K3/K4's
+    dense mode on the card) with random erasing, gradient clipping and the
+    EMA on, the erasing boxes and noise drawn once on the host for both
+    devices; the EMA (decay
     ``EMA_DECAY``, which damps the step's difference) is held to the
     parameters' float32 tolerance in both dtypes. ``distill`` gives the net
     a distill token and trains it with timm Mixup/CutMix (``elem`` mode),
@@ -1395,6 +1500,8 @@ def searched(steps: int, warmup: int):
     net = presets.VIT_RESNAS_TINY
     if nd.existing_depth(net) != PER_SEARCHED_STEP["attention_qkv_fwd"]:
         raise AssertionError("PER_SEARCHED_STEP does not count the net's attention layers")
+    if dense_lns(net) != PER_SEARCHED_STEP["layer_norm_fwd"]:
+        raise AssertionError("PER_SEARCHED_STEP does not count the net's layer norms")
     model = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
                          drop_path_rate=0.2, gelu="tanh", seed=0)
     ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=300, steps_per_epoch=1000,
@@ -1438,6 +1545,8 @@ def finetune(steps: int, warmup: int):
     net = presets.VIT_RESNAS_MEDIUM
     if nd.existing_depth(net) != PER_FINETUNE_STEP["attention_qkv_fwd"]:
         raise AssertionError("PER_FINETUNE_STEP does not count the net's attention layers")
+    if dense_lns(net) != PER_FINETUNE_STEP["layer_norm_fwd"]:
+        raise AssertionError("PER_FINETUNE_STEP does not count the net's layer norms")
 
     # the searched Medium net: two steps at 224 px, then its checkpoint
     src = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
@@ -1588,8 +1697,8 @@ def distill(steps: int, warmup: int):
     (bf16, exact GELU, drop_path 0.1) at batch ``BATCH``, hard distillation
     (alpha 0.5) from ``regnety_160_upsample`` (random weights from seed 0,
     bf16, eval mode), Mixup/CutMix in batch mode, smoothing 0.1, EMA
-    0.99996, AdamW. K1/K2 12 launches per step, K3-K5 none (a dense net's
-    layer norms are plain). The teacher's forward is bracketed by CUDA
+    0.99996, AdamW. K1/K2 12 launches per step, K3/K4's dense mode 25, the
+    masked K3/K4 and K5 none. The teacher's forward is bracketed by CUDA
     events in every step; the timed steps' mean is its time per step."""
     import gc
 
@@ -1606,6 +1715,8 @@ def distill(steps: int, warmup: int):
     model = create_model(DISTILL_MODEL, dtype=torch.bfloat16, drop_path_rate=0.1, seed=0)
     if nd.existing_depth(model.network_def) != PER_DISTILL_STEP["attention_qkv_fwd"]:
         raise AssertionError("PER_DISTILL_STEP does not count the net's attention layers")
+    if dense_lns(model.network_def) != PER_DISTILL_STEP["layer_norm_fwd"]:
+        raise AssertionError("PER_DISTILL_STEP does not count the net's layer norms")
     teacher_model = create_model(TEACHER_MODEL, dtype=torch.bfloat16, seed=0)
     forward = make_teacher(teacher_model)
     events = []
@@ -2395,9 +2506,9 @@ def study(root: str, started):
     retrained winner at 112 px: finite numbers, and K1 launched exactly
     twice (one forward per GELU form) per attention block of the winner
     that takes the kernel (at 112 px the third stage has N = 5 tokens,
-    which run the plain version), no other kernel (the dense net runs
-    plain layer norms). The subprocesses' launches cannot be read from
-    here; the cli phase counts the CLIs' own."""
+    which run the plain version), and K3's dense mode twice per layer norm
+    (``dense_lns``), no other kernel. The subprocesses' launches cannot be
+    read from here; the cli phase counts the CLIs' own."""
     import contextlib
 
     from vit_search_torch.arch import network_def as nd
@@ -2457,10 +2568,11 @@ def study(root: str, started):
     gelu_s = time.perf_counter() - t0
     counted = {k.name: k.launches for k in kernels.KERNELS}
     launches = {name: counted.get(name, 0) for name in KERNEL_NAMES}
-    want = per_pass(attention_qkv_fwd=2 * blocks)
+    want = per_pass(attention_qkv_fwd=2 * blocks, layer_norm_fwd=2 * dense_lns(winner))
     if launches != want:
         raise AssertionError(f"study: gelu_delta launches {launches}, expected {want} "
-                             f"(2 forwards x {blocks} attention blocks on the kernel)")
+                             f"(2 forwards x {blocks} attention blocks on the kernel and "
+                             f"{dense_lns(winner)} layer norms)")
     if not all(math.isfinite(v) for v in gelu.values()):
         raise AssertionError(f"study: gelu_delta {gelu}")
     return {"argv": argv[1:], "wall_s": wall_s, "timing": timing, "summary": summary,
@@ -2500,22 +2612,27 @@ def recipe_reads(argv: list) -> list:
             if flag in argv]
 
 
+def dense_lns(network_def) -> int:
+    """The layer norms of a net: two per transformer block, one per
+    spatial-reduction block, one final."""
+    from vit_search_torch.arch import network_def as nd
+
+    return (2 * nd.existing_depth(network_def) + 1
+            + sum(nd.block_type(b) == nd.SPATIAL_REDUCTION for b in network_def))
+
+
 def recipe_launches(network_def, img_size: int, masked: bool):
     """Launches per train step and per eval (or scoring) forward of a recipe's
     net, counted from its network_def: K1/K2 on each attention block that
-    takes the kernel (N >= 8); where ``masked`` (a supernet), K3/K4 on each
-    masked layer norm: two per transformer block, one per spatial-reduction
-    block, one final. A dense net's layer norms are plain."""
-    from vit_search_torch.arch import network_def as nd
-
+    takes the kernel (N >= 8); K3/K4 on each layer norm (``dense_lns``),
+    masked where ``masked`` (a supernet), else in their dense mode."""
     attention = kernel_attention_blocks(network_def, img_size)
-    lns = 0
-    if masked:
-        lns = (2 * nd.existing_depth(network_def) + 1
-               + sum(nd.block_type(b) == nd.SPATIAL_REDUCTION for b in network_def))
+    lns = dense_lns(network_def)
+    fwd, bwd = (("masked_layer_norm_fwd", "masked_layer_norm_bwd") if masked
+                else ("layer_norm_fwd", "layer_norm_bwd"))
     return (per_pass(attention_qkv_fwd=attention, attention_qkv_bwd=attention,
-                     masked_layer_norm_fwd=lns, masked_layer_norm_bwd=lns),
-            per_pass(attention_qkv_fwd=attention, masked_layer_norm_fwd=lns))
+                     **{fwd: lns, bwd: lns}),
+            per_pass(attention_qkv_fwd=attention, **{fwd: lns}))
 
 
 def net_stages(network_def, img_size: int, patch_size: int = 14) -> list:
@@ -2699,7 +2816,8 @@ def recipes(folder: str, root: str):
                 f"steps, {forwards} "
                 f"eval forwards, {rate}, acc1 {run.get('acc1', run.get('best_score'))}, peak "
                 f"{peak / 2**30:.2f} GiB, K1/K2/K3/K4 " + "/".join(
-                    str(launches[k]) for k in KERNEL_NAMES[:4]) + f", {seconds:.1f} s")
+                    str(launches[k]) for k in KERNEL_NAMES[:4]) + ", dense K3/K4 "
+                f"{launches['layer_norm_fwd']}/{launches['layer_norm_bwd']}, {seconds:.1f} s")
     finally:
         os.chdir(cwd)
     return {"scripts": runs, "seconds": time.perf_counter() - t_phase}
@@ -2870,6 +2988,13 @@ def main(argv=None) -> int:
     entries += check_dense_shapes(REPS)
     log("K1/K2 agree with their plain versions at the searched Tiny net's and the 392 px "
         "finetune's stage shapes")
+    for i, (n, c) in enumerate(MEDIUM_STAGES):
+        entries += check_layer_norm(f"Medium stage {i + 1}", n, c, REPS, MEDIUM_BATCH, "medium")
+    for i, (n, c) in enumerate(MEDIUM_392_STAGES):
+        entries += check_layer_norm(f"392px stage {i + 1}", n, c, REPS, MEDIUM_392_BATCH,
+                                    "finetune")
+    log(f"K3/K4's dense mode agrees with the plain dense layer norm at ViT-ResNAS-Medium's "
+        f"stage shapes, B = {MEDIUM_BATCH} at 224 px and B = {MEDIUM_392_BATCH} at 392 px")
     for stage in range(len(STAGES)):
         entries += (check_attention(stage, REPS, DIST_BATCH, "dist", backward=True)
                     + check_masked_ln(stage, REPS, DIST_BATCH, "dist", backward=True))
@@ -3054,6 +3179,8 @@ def main(argv=None) -> int:
     runs = {"train": (tr, PER_STEP),
             "searched": (se, PER_SEARCHED_STEP),
             "finetune": (ft, PER_FINETUNE_STEP),
+            # the Medium net's layer norms: the finetune phase trains it
+            "medium": (ft, PER_FINETUNE_STEP),
             "distill": (ds, PER_DISTILL_STEP),
             "ops": (ops, PER_OPS_PASS),
             "shapes": (shapes, PER_SHAPES_CALL),

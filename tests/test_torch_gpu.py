@@ -568,6 +568,144 @@ def test_masked_ln_kernels_are_captured_in_a_cuda_graph(cuda):
         assert torch.equal(a, b)
 
 
+# (B, N, C): ViT-ResNAS-Medium's dense layer norms at 224 and 392 px, at a
+# small batch
+MEDIUM_LN = [(4, 257, 240), (4, 65, 640), (4, 17, 880), (2, 785, 240), (2, 197, 640),
+             (2, 50, 880)]
+MEDIUM_LN_IDS = ["224_stage1", "224_stage2", "224_stage3", "392_stage1", "392_stage2",
+                 "392_stage3"]
+
+
+def _dense_inputs(cuda, b, n, c, dtype, seed, mean=0.5, spread=2.0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(b, n, c, device=cuda, generator=gen) * spread + mean).to(dtype)
+    g = torch.randn(b, n, c, device=cuda, generator=gen).to(dtype)
+    w = torch.randn(c, device=cuda, generator=gen)
+    bias = torch.randn(c, device=cuda, generator=gen)
+    return x, w, bias, g
+
+
+def _dense_against_plain(x, w, bias, g):
+    """The dense layer norm through the op (K3/K4's dense mode) against the
+    plain dense function in float32, at the masked route's tolerances; the
+    dense records count one launch each, the masked ones none."""
+    before = (M.LN_FWD.launches, M.LN_BWD.launches, M.K3.launches, M.K4.launches)
+    leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+    y = M.masked_layer_norm(*leaves, None)
+    grads = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    assert (M.LN_FWD.launches, M.LN_BWD.launches, M.K3.launches, M.K4.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    assert y.dtype == x.dtype and grads[0].dtype == x.dtype
+    assert grads[1].dtype == grads[2].dtype == torch.float32
+    ref = [t.detach().float().requires_grad_() for t in (x, w, bias)]
+    ref_y = M.layer_norm_plain(*ref, 1e-6)
+    ref_grads = torch.autograd.grad(ref_y, ref, g.float())
+    _close(y, ref_y)
+    _close(grads[0], ref_grads[0])
+    _close(grads[1], ref_grads[1], 1e-3)
+    _close(grads[2], ref_grads[2], 1e-3)
+
+
+def _close_stats(stats, x):
+    """K3's ``(mu, inv_std)`` against each row's in float32, the variance from
+    two passes; mu and inv_std each at 1e-4 of their own size."""
+    xf = x.float()
+    mu = xf.mean(-1)
+    _close(stats[..., 0], mu, 1e-4)
+    _close(stats[..., 1], torch.rsqrt((xf - mu[..., None]).square().mean(-1) + 1e-6), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c", MEDIUM_LN, ids=MEDIUM_LN_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_dense_layer_norm_kernels_match_plain(cuda, b, n, c, dtype):
+    x, w, bias, g = _dense_inputs(cuda, b, n, c, dtype, seed=b + n + c)
+    plan = M.launch_plan(b * n, n, c, x.element_size(), False, True, kernels.num_sms(x), True,
+                         dense=True)
+    assert plan.tile_rows > 0 and plan.mask_rows == 0
+    _dense_against_plain(x, w, bias, g)
+    _, stats = M.layer_norm_fwd_cuda(x, w, bias, 1e-6)
+    _close_stats(stats, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,offset,dtype", [(256, 4, torch.bfloat16), (100, 0, torch.bfloat16),
+                                            (12, 0, torch.bfloat16), (880, 4, torch.bfloat16)],
+                         ids=["bf16_c256_8_bytes", "bf16_c100", "bf16_c12", "bf16_c880_8_bytes"])
+def test_dense_layer_norm_kernels_take_the_general_path(cuda, c, offset, dtype):
+    """A bf16 view off a 16-byte boundary, and a bf16 row that is not whole
+    16-byte vectors, take the general path (a warp per row, the row in
+    registers). A float32 row on a 4-element boundary is always on 16
+    bytes, so float32 takes the tiled path."""
+    x, w, bias, g = _dense_inputs(cuda, 6, 17, c, dtype, seed=c)
+    if offset:
+        x, g = _offset_copy(x, offset), _offset_copy(g, offset)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g))
+    plan = M.launch_plan(6 * 17, 17, c, x.element_size(), False, aligned, kernels.num_sms(x),
+                         True, dense=True)
+    assert plan.tile_rows == 0
+    _dense_against_plain(x, w, bias, g)
+    _, stats = M.layer_norm_fwd_cuda(x, w, bias, 1e-6)
+    _close_stats(stats, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,offset", [(640, 0), (100, 0), (256, 4)],
+                         ids=["tiled", "general_c100", "general_8_bytes"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_dense_layer_norm_takes_two_passes_over_a_row(cuda, c, offset, dtype):
+    """Rows whose mean is 100 times their spread: the kernels' variance,
+    mean((x - mu)^2), holds inv_std to 1e-4 of the plain function's, where
+    mean(x^2) - mu^2 in float32 would not."""
+    x, w, bias, g = _dense_inputs(cuda, 8, 65, c, dtype, seed=7, mean=100.0, spread=1.0)
+    if offset:
+        x, g = _offset_copy(x, offset), _offset_copy(g, offset)
+    _, stats = M.layer_norm_fwd_cuda(x, w, bias, 1e-6)
+    _close_stats(stats, x)
+    _dense_against_plain(x, w, bias, g)
+
+
+@pytest.mark.gpu
+def test_dense_layer_norm_kernels_are_captured_in_a_cuda_graph(cuda):
+    x, w, bias, g = _dense_inputs(cuda, 64, 65, 640, torch.bfloat16, seed=3)
+    y, stats = M.layer_norm_fwd_cuda(x, w, bias, 1e-6)
+    want = (y, stats) + M.layer_norm_bwd_cuda(x, w, stats, g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gy, gstats = M.layer_norm_fwd_cuda(x, w, bias, 1e-6)
+        got = (gy, gstats) + M.layer_norm_bwd_cuda(x, w, gstats, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,offset,error,match", [
+    ((2, 5, 6), torch.bfloat16, 0, ValueError, "C % 4"),
+    ((2, 5, 2052), torch.bfloat16, 0, ValueError, "C <= 2048"),
+    ((2, 5, 64), torch.float16, 0, TypeError, "dtype"),
+    ((10, 64), torch.bfloat16, 0, ValueError, "3 dims"),
+    ((2, 5, 7, 64), torch.bfloat16, 0, ValueError, "3 dims"),
+    ((2, 5, 64), torch.bfloat16, 2, ValueError, "aligned")],
+    ids=["c6", "c2052", "float16", "2d", "4d", "offset_4_bytes"])
+def test_dense_layer_norm_raises_on_what_the_kernels_refuse(cuda, shape, dtype, offset, error,
+                                                            match):
+    """On the card the dense layer norm goes through K3/K4 or raises: C % 4
+    != 0, C past the widest, float16, a tensor that is not 3-D and a view off
+    a 4-element boundary launch nothing and fall back to nothing."""
+    c = shape[-1]
+    flat = torch.randn(int(np.prod(shape)) + offset, device=cuda).to(dtype)
+    x = flat[offset:].view(shape)
+    w, bias = torch.ones(c, device=cuda), torch.zeros(c, device=cuda)
+    before = (M.LN_FWD.launches, M.LN_BWD.launches)
+    with pytest.raises(error, match=match):
+        M.masked_layer_norm(x, w, bias, None)
+    assert (M.LN_FWD.launches, M.LN_BWD.launches) == before
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     qkv = torch.zeros(2, 17, 3 * 2 * 24, device=cuda, dtype=torch.bfloat16)

@@ -15,6 +15,7 @@ import torch
 
 from vit_search_tpu.ops import masked_layer_norm as jax_masked_ln
 from vit_search_tpu.ops.pallas import masked_layer_norm_pallas
+from vit_search_torch.ops import masked_layer_norm as M
 from vit_search_torch.ops.masked_layer_norm import (masked_layer_norm,
                                                     masked_ln_bwd_plain,
                                                     masked_ln_fwd_plain)
@@ -180,19 +181,109 @@ def test_launch_plan_fits_shared_memory(rows, n, c, itemsize, shared, backward):
         assert plan.smem_bytes >= phases * 2 * c * 4
 
 
+@pytest.mark.parametrize("dense", [False, True], ids=["masked", "dense"])
 @pytest.mark.parametrize("backward", [False, True], ids=["K3", "K4"])
 @pytest.mark.parametrize("c,itemsize,aligned", [(12, 2, True), (100, 2, True), (4, 2, True),
                                                 (1024, 2, False), (256, 4, False)],
                          ids=["bf16_c12", "bf16_c100", "bf16_c4", "bf16_misaligned",
                               "f32_misaligned"])
-def test_launch_plan_sends_the_rest_to_the_general_path(c, itemsize, aligned, backward):
+def test_launch_plan_sends_the_rest_to_the_general_path(c, itemsize, aligned, backward, dense):
     from vit_search_torch.ops import masked_layer_norm as M
 
     rows = 40 * 17
-    plan = M.launch_plan(rows, 17, c, itemsize, False, aligned, SMS, backward)
+    plan = M.launch_plan(rows, 17, c, itemsize, False, aligned, SMS, backward, dense=dense)
     assert plan.tile_rows == 0 and plan.stages == 0
+    if dense:
+        assert plan.mask_rows == 0
     if backward:   # one partial per block of the grid-stride rows
         assert plan.grid == min(-(-rows // 8), 4 * SMS)
         assert plan.smem_bytes == 2 * c * 4
     else:          # a warp per row
         assert plan.grid == -(-rows // 8)
+
+
+# --- the dense layer norm: K3/K4's dense mode on the card, plain on the CPU ---
+
+# (rows, n, C, itemsize): ViT-ResNAS-Medium's stages at 224 px (batch 1024)
+# and 392 px (batch 256) in bf16, and the 224 px stages in float32
+DENSE_PLAN_SHAPES = [(1024 * 257, 257, 240, 2), (1024 * 65, 65, 640, 2),
+                     (1024 * 17, 17, 880, 2), (256 * 785, 785, 240, 2),
+                     (256 * 197, 197, 640, 2), (256 * 50, 50, 880, 2),
+                     (1024 * 257, 257, 240, 4), (1024 * 65, 65, 640, 4),
+                     (1024 * 17, 17, 880, 4)]
+DENSE_PLAN_IDS = ["224_stage1", "224_stage2", "224_stage3", "392_stage1", "392_stage2",
+                  "392_stage3", "224_stage1_f32", "224_stage2_f32", "224_stage3_f32"]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("rows,n,c,itemsize", DENSE_PLAN_SHAPES, ids=DENSE_PLAN_IDS)
+def test_dense_launch_plan_stages_no_mask_rows(rows, n, c, itemsize, backward):
+    """The dense plan is the tiled plan with no mask rows: every row once,
+    the shared bytes of csrc/masked_ln.cu's layout with ``mask_rows`` 0, and
+    no more than the masked plan's at the same shape unless that buys a
+    stage."""
+    plan = M.launch_plan(rows, n, c, itemsize, False, True, SMS, backward, dense=True)
+    assert plan.tile_rows > 0 and plan.mask_rows == 0
+    assert plan.smem_bytes == M.tiled_smem_bytes(backward, c, itemsize, plan.tile_rows,
+                                                 plan.stages, 0)
+    assert plan.smem_bytes <= M.MAX_BLOCK_SMEM
+    assert -(-plan.grid // SMS) * (plan.smem_bytes + 1024) <= M.SM_SMEM
+    assert 2 <= plan.stages <= M.RING_STAGES[backward]
+    if backward:
+        phases = max(1, M.BLOCK_THREADS // (c // (16 // itemsize)))
+        assert plan.smem_bytes >= phases * 2 * c * 4
+    tiles = [t for block in block_tiles(plan, rows) for t in block]
+    assert tiles[0][0] == 0 and tiles[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+    masked = M.launch_plan(rows, n, c, itemsize, False, True, SMS, backward)
+    # the ring's mask rows freed: as many stages or more in less shared memory
+    assert plan.tile_rows == masked.tile_rows and plan.stages >= masked.stages
+    assert plan.smem_bytes <= masked.smem_bytes or plan.stages > masked.stages
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_layer_norm_on_the_cpu_is_the_plain_function(dtype):
+    """A CPU tensor the kernels would take stays on the plain function,
+    forward and backward, and counts no launch."""
+    x, w, bias, _, g = _data(2, 17, 240, seed=13)
+    xt = torch.tensor(x).to(dtype).requires_grad_()
+    wt, bt = torch.tensor(w, requires_grad=True), torch.tensor(bias, requires_grad=True)
+    before = (M.LN_FWD.launches, M.LN_BWD.launches, M.K3.launches, M.K4.launches)
+    y = masked_layer_norm(xt, wt, bt, None)
+    got = torch.autograd.grad(y, (xt, wt, bt), torch.tensor(g).to(dtype))
+    assert (M.LN_FWD.launches, M.LN_BWD.launches, M.K3.launches, M.K4.launches) == before
+    leaves = [t.detach().clone().requires_grad_() for t in (xt, wt, bt)]
+    want_y = M.layer_norm_plain(*leaves, 1e-6)
+    want = torch.autograd.grad(want_y, leaves, torch.tensor(g).to(dtype))
+    assert torch.equal(y, want_y)
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+
+
+def _offset_view(shape, elements, dtype):
+    flat = torch.zeros(int(np.prod(shape)) + elements, dtype=dtype)
+    return flat[elements:].view(shape)
+
+
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((2, 5, 240), torch.bfloat16, 0), ((2, 5, 880), torch.float32, 0),
+    ((2, 5, 2048), torch.bfloat16, 0), ((2, 5, 100), torch.bfloat16, 0),
+    ((2, 5, 240), torch.bfloat16, 4), ((2, 5, 6), torch.bfloat16, 0),
+    ((2, 5, 2052), torch.bfloat16, 0), ((2, 5, 240), torch.float16, 0),
+    ((10, 240), torch.bfloat16, 0), ((2, 5, 7, 240), torch.bfloat16, 0),
+    ((0, 5, 240), torch.bfloat16, 0), ((2, 5, 240), torch.bfloat16, 2)],
+    ids=["bf16", "f32_c880", "c2048", "bf16_c100", "offset_8_bytes", "c6", "c2052",
+         "float16", "2d", "4d", "empty", "offset_4_bytes"])
+def test_dense_layer_norm_on_the_cpu_takes_any_shape(shape, dtype, offset):
+    """On the CPU the dense layer norm is the plain function whatever the
+    shape, dtype or alignment, the kernels' limits included; no launch."""
+    x = _offset_view(shape, offset, dtype)
+    x.copy_(torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(dtype))
+    c = shape[-1]
+    w = torch.linspace(0.5, 1.5, c)
+    bias = torch.linspace(-0.25, 0.25, c)
+    before = (M.LN_FWD.launches, M.LN_BWD.launches, M.K3.launches, M.K4.launches)
+    y = masked_layer_norm(x, w, bias, None)
+    assert (M.LN_FWD.launches, M.LN_BWD.launches, M.K3.launches, M.K4.launches) == before
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, M.layer_norm_plain(x, w, bias, 1e-6))

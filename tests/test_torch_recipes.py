@@ -129,26 +129,33 @@ def test_every_recipe_runs_after_the_checkpoints_it_reads():
 
 
 @pytest.mark.parametrize("script,launches", [
-    ("super_net/small.sh", (21, 45, 21, 45)),
-    ("super_net/tiny.sh", (18, 39, 18, 39)),
-    ("super_net/no_distill/tiny.sh", (18, 39, 18, 39)),
-    ("evolutionary_search/medium_mac@4.6G.sh", (21, 45, 21, 45)),
-    ("reference_net/tiny.sh", (12, 0, 12, 0)),
-    ("finetune/medium_img-size@280.sh", (20, 0, 20, 0)),
-    ("eval/small_mac@2.9G.sh", (17, 0, 17, 0)),
+    ("super_net/small.sh", (21, 45, 21, 45, 0, 0)),
+    ("super_net/tiny.sh", (18, 39, 18, 39, 0, 0)),
+    ("super_net/no_distill/tiny.sh", (18, 39, 18, 39, 0, 0)),
+    ("evolutionary_search/medium_mac@4.6G.sh", (21, 45, 21, 45, 0, 0)),
+    ("reference_net/tiny.sh", (12, 0, 12, 0, 27, 27)),
+    ("finetune/medium_img-size@280.sh", (20, 0, 20, 0, 43, 43)),
+    ("eval/small_mac@2.9G.sh", (17, 0, 17, 0, 37, 37)),
 ])
 def test_recipe_launches_per_step_and_per_forward(script, launches):
-    """K1/K2 on every attention block (N >= 8 at every stage of these nets),
-    K3/K4 on a supernet's 2 x blocks + SR blocks + final layer norm."""
+    """K1/K2 on every attention block (N >= 8 at every stage of these nets);
+    K3/K4 on a net's 2 x blocks + SR blocks + final layer norm, masked in a
+    supernet, in their dense mode in a dense net, the other records 0."""
     cli, argv = chip_smoke.recipe_argv(script, DATA, 3)
     args = _parser(cli).parse_args(argv)
     masked = cli == "evo_search" or args.model.endswith("_supernet")
-    step, forward = chip_smoke.recipe_launches(parse_network_def(args.network_def),
-                                               args.input_size, masked)
+    net = parse_network_def(args.network_def)
+    step, forward = chip_smoke.recipe_launches(net, args.input_size, masked)
     assert (step["attention_qkv_fwd"], step["masked_layer_norm_fwd"],
-            forward["attention_qkv_fwd"], forward["masked_layer_norm_fwd"]) == launches
+            forward["attention_qkv_fwd"], forward["masked_layer_norm_fwd"],
+            step["layer_norm_fwd"], forward["layer_norm_fwd"]) == launches
     assert step["attention_qkv_bwd"] == launches[0] and forward["attention_qkv_bwd"] == 0
     assert step["masked_layer_norm_bwd"] == launches[1]
+    assert step["layer_norm_bwd"] == launches[4] and forward["layer_norm_bwd"] == 0
+    # 2 x existing_depth + SR blocks + 1, masked or dense
+    lns = 2 * nd.existing_depth(net) + nd.num_stages(net)
+    assert launches[1] + launches[4] == lns
+    assert set(step) == set(forward) == set(chip_smoke.KERNEL_NAMES)
 
 
 @pytest.mark.parametrize("script,stages", [

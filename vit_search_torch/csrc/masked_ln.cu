@@ -12,6 +12,14 @@
 //   gx = (dz - (mean(dz) + z * mean(z * dz)) * inv_p) * inv_std
 //   gw = sum_rows gf * z;  gb = sum_rows gf
 //
+// Dense mode (a null mask pointer; a template parameter of every row kernel,
+// so the masked instantiations are the code they were): the layer norm of a
+// net without masks, m = 1 and inv_p = 1, no mask rows staged or read, and
+// the variance taken in two passes over the row the kernel already holds,
+// var = mean((x - mu)^2), as the dense layer norm of the JAX package
+// (vit_search_tpu/ops/masked_layer_norm.py:62-66) computes it: mean(x^2) -
+// mu^2 loses the spread of a row whose mean is far above it.
+//
 // What bounds it on this card: bytes. Each element is touched by a handful of
 // flops (about 0.5 flop per byte moved), so both kernels are streams over
 // x (and g), and the only lever is keeping enough bytes in flight.
@@ -252,22 +260,28 @@ __device__ __forceinline__ uint64_t evict_first() {
   return policy;
 }
 
-// Thread 0: stage tile tl into `stage` (x, then g where given, then the masks)
-// and note it in `slot`.
-template <typename T>
+// Thread 0: stage tile tl into `stage` (x, then g where given, then the masks
+// unless dense) and note it in `slot`.
+template <typename T, bool kDense>
 __device__ __forceinline__ void issue_tile(const Tile& tl, int c, int tile_rows, const T* x,
                                            const T* g, const T* mask, long long mask_bstride,
                                            unsigned char* stage, uint64_t* bar, Tile* slot,
                                            uint64_t policy) {
   *slot = tl;
   const uint32_t xb = (uint32_t)tl.nr * c * sizeof(T);
-  const uint32_t mb = (uint32_t)tl.ne * c * sizeof(T);
   T* xs = reinterpret_cast<T*>(stage);
-  T* ms = xs + (size_t)(g ? 2 : 1) * tile_rows * c;
-  bar_expect(bar, (g ? 2 : 1) * xb + mb);
-  bulk_copy(xs, x + tl.r0 * c, xb, bar, policy);
-  if (g) bulk_copy(xs + (size_t)tile_rows * c, g + tl.r0 * c, xb, bar, policy);
-  bulk_copy(ms, mask + tl.e0 * mask_bstride, mb, bar, policy);
+  if constexpr (kDense) {
+    bar_expect(bar, (g ? 2 : 1) * xb);
+    bulk_copy(xs, x + tl.r0 * c, xb, bar, policy);
+    if (g) bulk_copy(xs + (size_t)tile_rows * c, g + tl.r0 * c, xb, bar, policy);
+  } else {
+    const uint32_t mb = (uint32_t)tl.ne * c * sizeof(T);
+    T* ms = xs + (size_t)(g ? 2 : 1) * tile_rows * c;
+    bar_expect(bar, (g ? 2 : 1) * xb + mb);
+    bulk_copy(xs, x + tl.r0 * c, xb, bar, policy);
+    if (g) bulk_copy(xs + (size_t)tile_rows * c, g + tl.r0 * c, xb, bar, policy);
+    bulk_copy(ms, mask + tl.e0 * mask_bstride, mb, bar, policy);
+  }
 }
 
 // Once a tile has landed: the warps sum each staged mask row once (msum[j],
@@ -295,7 +309,7 @@ __device__ __forceinline__ void tile_masks(const T* ms, const Tile& tl, int n, i
 
 // --- K3, tiled ---------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kDense>
 __global__ void __launch_bounds__(kThreads, kFwdBlocksPerSM)
 masked_ln_fwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
                            long long mask_bstride, const float* __restrict__ w,
@@ -325,8 +339,8 @@ masked_ln_fwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     for (int s = 0; s < stages; ++s) bar_init(&bars[s]);
     bar_init_fence();
     for (int s = 0; s < stages && s < walk.nt; ++s)
-      issue_tile<T>(walk.tile(s, n, mask_bstride), c, tile_rows, x, nullptr, mask,
-                    mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s], policy);
+      issue_tile<T, kDense>(walk.tile(s, n, mask_bstride), c, tile_rows, x, nullptr, mask,
+                            mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s], policy);
   }
   for (int i = threadIdx.x; i < c; i += kThreads) {
     ws[i] = w[i];
@@ -340,15 +354,17 @@ masked_ln_fwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     const T* ms = xs + (size_t)tile_rows * c;
     bar_wait(&bars[s], (k / stages) & 1);
     const Tile tl = metas[s];
-    tile_masks(ms, tl, n, c, mask_bstride, msum, rslot);
-    __syncthreads();
+    if constexpr (!kDense) {
+      tile_masks(ms, tl, n, c, mask_bstride, msum, rslot);
+      __syncthreads();
+    }
     // each warp's lane groups take rows base, base + 1, ...; every lane of the
     // warp runs the loop and the sums, a group past the tile's end on its last
     // row, storing nothing
     for (int base = warp * per_warp; base < tl.nr; base += kWarps * per_warp) {
       const bool valid = base + lane / lanes < tl.nr;
       const int r = valid ? base + lane / lanes : tl.nr - 1;
-      const int slot = rslot[r];
+      const int slot = kDense ? 0 : rslot[r];
       const T* xr = xs + (size_t)r * c;
       const T* mr = ms + (size_t)slot * c;
       float sx = 0.f, sxx = 0.f;
@@ -358,39 +374,61 @@ masked_ln_fwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           sx += v[e];
-          sxx += v[e] * v[e];
+          if constexpr (!kDense) sxx += v[e] * v[e];
         }
       }
       sx = row_sum(sx, lanes);
-      sxx = row_sum(sxx, lanes);
-      const float inv_p = 1.f / (msum[slot] / c);
-      const float mu = (sx / c) * inv_p;
-      const float var = (sxx / c) * inv_p - mu * mu;
+      float mu, var;
+      if constexpr (kDense) {
+        // the second pass, over the staged row: the spread about the mean
+        mu = sx / c;
+        for (int ch = sub; ch < nchunks; ch += lanes) {
+          float v[V];
+          load16(xr + ch * V, v);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float d = v[e] - mu;
+            sxx += d * d;
+          }
+        }
+        var = row_sum(sxx, lanes) / c;
+      } else {
+        sxx = row_sum(sxx, lanes);
+        const float inv_p = 1.f / (msum[slot] / c);
+        mu = (sx / c) * inv_p;
+        var = (sxx / c) * inv_p - mu * mu;
+      }
       const float inv_std = rsqrtf(var + eps);
       if (!valid) continue;
       T* yr = y + (tl.r0 + r) * c;
       for (int ch = sub; ch < nchunks; ch += lanes) {
         float v[V], m[V], wv[V], bv[V], out[V];
         load16(xr + ch * V, v);
-        load16(mr + ch * V, m);
+        if constexpr (!kDense) load16(mr + ch * V, m);
         load_params(ws + ch * V, wv);
         load_params(bs + ch * V, bv);
 #pragma unroll
-        for (int e = 0; e < V; ++e) out[e] = (wv[e] * ((v[e] - mu) * inv_std) + bv[e]) * m[e];
+        for (int e = 0; e < V; ++e) {
+          if constexpr (kDense)
+            out[e] = wv[e] * ((v[e] - mu) * inv_std) + bv[e];
+          else
+            out[e] = (wv[e] * ((v[e] - mu) * inv_std) + bv[e]) * m[e];
+        }
         store16(yr + ch * V, out);
       }
       if (sub == 0) stats[tl.r0 + r] = make_float2(mu, inv_std);
     }
     __syncthreads();  // the stage is free
     if (threadIdx.x == 0 && k + stages < walk.nt)
-      issue_tile<T>(walk.tile(k + stages, n, mask_bstride), c, tile_rows, x, nullptr, mask,
-                    mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s], policy);
+      issue_tile<T, kDense>(walk.tile(k + stages, n, mask_bstride), c, tile_rows, x, nullptr,
+                            mask, mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s],
+                            policy);
   }
 }
 
 // --- K4, tiled: gx, and one (2, C) partial of gw, gb per block ------------------
 
-template <typename T>
+template <typename T, bool kDense>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
                            long long mask_bstride, const float* __restrict__ w,
@@ -429,8 +467,8 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     for (int s = 0; s < stages; ++s) bar_init(&bars[s]);
     bar_init_fence();
     for (int s = 0; s < stages && s < walk.nt; ++s)
-      issue_tile<T>(walk.tile(s, n, mask_bstride), c, tile_rows, x, g, mask, mask_bstride,
-                    ring + s * stage_bytes, &bars[s], &metas[s], policy);
+      issue_tile<T, kDense>(walk.tile(s, n, mask_bstride), c, tile_rows, x, g, mask,
+                            mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s], policy);
   }
   for (int i = threadIdx.x; i < c; i += kThreads) ws[i] = w[i];
   __syncthreads();
@@ -450,7 +488,7 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     bar_wait(&bars[s], (k / stages) & 1);
     const Tile tl = metas[s];
     if ((int)threadIdx.x < tl.nr) rstat[threadIdx.x] = st_next;
-    tile_masks(ms, tl, n, c, mask_bstride, msum, rslot);
+    if constexpr (!kDense) tile_masks(ms, tl, n, c, mask_bstride, msum, rslot);
     __syncthreads();
     st_next = row_stats(k + 1);
 
@@ -458,7 +496,7 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     for (int base = warp * per_warp; base < tl.nr; base += kWarps * per_warp) {
       const bool valid = base + lane / lanes < tl.nr;
       const int r = valid ? base + lane / lanes : tl.nr - 1;
-      const int slot = rslot[r];
+      const int slot = kDense ? 0 : rslot[r];
       const float2 rs = rstat[r];
       const float mu = rs.x, inv_std = rs.y;
       const T* xr = xs + (size_t)r * c;
@@ -469,12 +507,12 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
         float v[V], gv[V], m[V], wv[V];
         load16(xr + ch * V, v);
         load16(gr + ch * V, gv);
-        load16(mr + ch * V, m);
+        if constexpr (!kDense) load16(mr + ch * V, m);
         load_params(ws + ch * V, wv);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           const float z = (v[e] - mu) * inv_std;
-          const float dz = gv[e] * m[e] * wv[e];
+          const float dz = kDense ? gv[e] * wv[e] : gv[e] * m[e] * wv[e];
           s_dz += dz;
           s_zdz += z * dz;
         }
@@ -482,20 +520,24 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
       s_dz = row_sum(s_dz, lanes);
       s_zdz = row_sum(s_zdz, lanes);
       if (!valid) continue;
-      const float inv_p = 1.f / (msum[slot] / c);
+      const float inv_p = kDense ? 1.f : 1.f / (msum[slot] / c);
       const float mean_dz = s_dz / c, mean_zdz = s_zdz / c;
       T* gxr = gx + (tl.r0 + r) * c;
       for (int ch = sub; ch < nchunks; ch += lanes) {
         float v[V], gv[V], m[V], wv[V], out[V];
         load16(xr + ch * V, v);
         load16(gr + ch * V, gv);
-        load16(mr + ch * V, m);
+        if constexpr (!kDense) load16(mr + ch * V, m);
         load_params(ws + ch * V, wv);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           const float z = (v[e] - mu) * inv_std;
-          const float dz = gv[e] * m[e] * wv[e];
-          out[e] = (dz - (mean_dz + z * mean_zdz) * inv_p) * inv_std;
+          if constexpr (kDense) {
+            out[e] = (gv[e] * wv[e] - (mean_dz + z * mean_zdz)) * inv_std;
+          } else {
+            const float dz = gv[e] * m[e] * wv[e];
+            out[e] = (dz - (mean_dz + z * mean_zdz) * inv_p) * inv_std;
+          }
         }
         store16(gxr + ch * V, out);
       }
@@ -512,10 +554,10 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
           float v[V], gv[V], m[V];
           load16(xs + (size_t)r * c + ch * V, v);
           load16(gs + (size_t)r * c + ch * V, gv);
-          load16(ms + (size_t)rslot[r] * c + ch * V, m);
+          if constexpr (!kDense) load16(ms + (size_t)rslot[r] * c + ch * V, m);
 #pragma unroll
           for (int e = 0; e < V; ++e) {
-            const float gf = gv[e] * m[e];
+            const float gf = kDense ? gv[e] : gv[e] * m[e];
             accw[q][e] += gf * ((v[e] - rs.x) * rs.y);
             accb[q][e] += gf;
           }
@@ -524,8 +566,8 @@ masked_ln_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     }
     __syncthreads();  // the stage is free
     if (threadIdx.x == 0 && k + stages < walk.nt)
-      issue_tile<T>(walk.tile(k + stages, n, mask_bstride), c, tile_rows, x, g, mask,
-                    mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s], policy);
+      issue_tile<T, kDense>(walk.tile(k + stages, n, mask_bstride), c, tile_rows, x, g, mask,
+                            mask_bstride, ring + s * stage_bytes, &bars[s], &metas[s], policy);
   }
 
   // fold the phases in order, in the ring's space (every staged tile was waited
@@ -580,7 +622,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 }
 
 // CPL: 4-element chunks per lane; lane l owns chunks l, l + 32, ...
-template <typename T, int CPL>
+template <typename T, int CPL, bool kDense>
 __global__ void __launch_bounds__(kThreads)
 masked_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
                      long long mask_bstride, const float* __restrict__ w,
@@ -600,21 +642,40 @@ masked_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     const int ch = lane + 32 * k;
     if (ch < nchunks) {
       load4(xr + 4 * ch, xv[k]);
-      load4(mr + 4 * ch, mv[k]);
+      if constexpr (!kDense) load4(mr + 4 * ch, mv[k]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         sx += xv[k][e];
-        sxx += xv[k][e] * xv[k][e];
-        sm += mv[k][e];
+        if constexpr (!kDense) {
+          sxx += xv[k][e] * xv[k][e];
+          sm += mv[k][e];
+        }
       }
     }
   }
   sx = warp_sum(sx);
-  sxx = warp_sum(sxx);
-  sm = warp_sum(sm);
-  const float inv_p = 1.f / (sm / c);
-  const float mu = (sx / c) * inv_p;
-  const float var = (sxx / c) * inv_p - mu * mu;
+  float mu, var;
+  if constexpr (kDense) {
+    // the second pass, over the row in registers: the spread about the mean
+    mu = sx / c;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      if (lane + 32 * k < nchunks) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = xv[k][e] - mu;
+          sxx += d * d;
+        }
+      }
+    }
+    var = warp_sum(sxx) / c;
+  } else {
+    sxx = warp_sum(sxx);
+    sm = warp_sum(sm);
+    const float inv_p = 1.f / (sm / c);
+    mu = (sx / c) * inv_p;
+    var = (sxx / c) * inv_p - mu * mu;
+  }
   const float inv_std = rsqrtf(var + eps);
 
   T* yr = y + (long long)row * c;
@@ -626,15 +687,19 @@ masked_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
       load4(w + 4 * ch, wv);
       load4(b + 4 * ch, bv);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        out[e] = (wv[e] * ((xv[k][e] - mu) * inv_std) + bv[e]) * mv[k][e];
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kDense)
+          out[e] = wv[e] * ((xv[k][e] - mu) * inv_std) + bv[e];
+        else
+          out[e] = (wv[e] * ((xv[k][e] - mu) * inv_std) + bv[e]) * mv[k][e];
+      }
       store4(yr + 4 * ch, out);
     }
   }
   if (lane == 0) stats[row] = make_float2(mu, inv_std);
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool kDense>
 __global__ void __launch_bounds__(kThreads)
 masked_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
                      long long mask_bstride, const float* __restrict__ w,
@@ -665,19 +730,19 @@ masked_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
       if (ch < nchunks) {
         float xv[4], mv[4], gv[4], wv[4];
         load4(x + off + 4 * ch, xv);
-        load4(mr + 4 * ch, mv);
+        if constexpr (!kDense) load4(mr + 4 * ch, mv);
         load4(g + off + 4 * ch, gv);
         load4(w + 4 * ch, wv);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float z = (xv[e] - mu) * inv_std;
-          const float gf = gv[e] * mv[e];
+          const float gf = kDense ? gv[e] : gv[e] * mv[e];
           const float dz = gf * wv[e];
           zv[k][e] = z;
           dzv[k][e] = dz;
           s_dz += dz;
           s_zdz += z * dz;
-          sm += mv[e];
+          if constexpr (!kDense) sm += mv[e];
           accw[k][e] += gf * z;
           accb[k][e] += gf;
         }
@@ -685,8 +750,8 @@ masked_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
     }
     s_dz = warp_sum(s_dz);
     s_zdz = warp_sum(s_zdz);
-    sm = warp_sum(sm);
-    const float inv_p = 1.f / (sm / c);
+    if constexpr (!kDense) sm = warp_sum(sm);
+    const float inv_p = kDense ? 1.f : 1.f / (sm / c);
     const float mean_dz = s_dz / c;
     const float mean_zdz = s_zdz / c;
 #pragma unroll
@@ -695,8 +760,12 @@ masked_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ mask,
       if (ch < nchunks) {
         float out[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          out[e] = (dzv[k][e] - (mean_dz + zv[k][e] * mean_zdz) * inv_p) * inv_std;
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kDense)
+            out[e] = (dzv[k][e] - (mean_dz + zv[k][e] * mean_zdz)) * inv_std;
+          else
+            out[e] = (dzv[k][e] - (mean_dz + zv[k][e] * mean_zdz) * inv_p) * inv_std;
+        }
         store4(gx + off + 4 * ch, out);
       }
     }
@@ -761,16 +830,18 @@ int prepare(K kernel, size_t smem) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// the tiled path's own conditions; the wrapper sends nothing else to it
+// the tiled path's own conditions; the wrapper sends nothing else to it. A
+// null mask (dense) stages no mask rows.
 bool tiled_ok(bool bwd, int c, int esize, int tile_rows, int grid, int stages, int mask_rows,
               long long smem, const void* x, const void* g, const void* mask, const void* y) {
   return (size_t)c * esize % 16 == 0 && tile_rows >= 1 && tile_rows <= kMaxTileRows &&
-         grid >= 1 && stages >= 2 && stages <= kMaxStages && mask_rows >= 1 &&
+         grid >= 1 && stages >= 2 && stages <= kMaxStages &&
+         (mask ? mask_rows >= 1 : mask_rows == 0) &&
          smem == (long long)tiled_smem_bytes(bwd, c, esize, tile_rows, stages, mask_rows) &&
          aligned16(x) && aligned16(mask) && aligned16(y) && (!g || aligned16(g));
 }
 
-template <typename T>
+template <typename T, bool kDense>
 int fwd_tiled(const void* x, const void* mask, long long mask_bstride, const void* w,
               const void* b, void* y, void* stats, long long rows, int n, int c, float eps,
               int tile_rows, int grid, int stages, int mask_rows, long long smem,
@@ -778,7 +849,7 @@ int fwd_tiled(const void* x, const void* mask, long long mask_bstride, const voi
   if (!tiled_ok(false, c, sizeof(T), tile_rows, grid, stages, mask_rows, smem, x, nullptr,
                 mask, y))
     return (int)cudaErrorInvalidValue;
-  auto kernel = masked_ln_fwd_tiled_kernel<T>;
+  auto kernel = masked_ln_fwd_tiled_kernel<T, kDense>;
   int rc = prepare(kernel, (size_t)smem);
   if (rc) return rc;
   kernel<<<grid, kThreads, (size_t)smem, stream>>>(
@@ -788,7 +859,7 @@ int fwd_tiled(const void* x, const void* mask, long long mask_bstride, const voi
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kDense>
 int bwd_tiled(const void* x, const void* mask, long long mask_bstride, const void* w,
               const void* stats, const void* g, void* gx, void* partial, int nparts,
               long long rows, int n, int c, int tile_rows, int stages, int mask_rows,
@@ -796,7 +867,7 @@ int bwd_tiled(const void* x, const void* mask, long long mask_bstride, const voi
   if (!tiled_ok(true, c, sizeof(T), tile_rows, nparts, stages, mask_rows, smem, x, g, mask,
                 gx))
     return (int)cudaErrorInvalidValue;
-  auto kernel = masked_ln_bwd_tiled_kernel<T>;
+  auto kernel = masked_ln_bwd_tiled_kernel<T, kDense>;
   int rc = prepare(kernel, (size_t)smem);
   if (rc) return rc;
   kernel<<<nparts, kThreads, (size_t)smem, stream>>>(
@@ -807,23 +878,23 @@ int bwd_tiled(const void* x, const void* mask, long long mask_bstride, const voi
   return (int)cudaGetLastError();
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool kDense>
 int fwd_general(const void* x, const void* mask, long long mask_bstride, const void* w,
                 const void* b, void* y, void* stats, int rows, int n, int c, float eps,
                 cudaStream_t stream) {
   const int blocks = (rows + kWarps - 1) / kWarps;
-  masked_ln_fwd_kernel<T, CPL><<<blocks, kThreads, 0, stream>>>(
+  masked_ln_fwd_kernel<T, CPL, kDense><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mask), mask_bstride,
       static_cast<const float*>(w), static_cast<const float*>(b), static_cast<T*>(y),
       static_cast<float2*>(stats), rows, n, c, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, bool kDense>
 int bwd_general(const void* x, const void* mask, long long mask_bstride, const void* w,
                 const void* stats, const void* g, void* gx, void* partial, int nparts,
                 int rows, int n, int c, cudaStream_t stream) {
-  masked_ln_bwd_kernel<T, CPL><<<nparts, kThreads, 2 * c * sizeof(float), stream>>>(
+  masked_ln_bwd_kernel<T, CPL, kDense><<<nparts, kThreads, 2 * c * sizeof(float), stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mask), mask_bstride,
       static_cast<const float*>(w), static_cast<const float2*>(stats),
       static_cast<const T*>(g), static_cast<T*>(gx), static_cast<float*>(partial),
@@ -846,14 +917,64 @@ int pick_cpl(int c) {
   return 0;
 }
 
+// K3 in one dtype and mode: the tiled path where tile_rows > 0, else the
+// general path at the chunks per lane C needs
+template <typename T, bool kDense>
+int fwd(const void* x, const void* mask, long long mask_bstride, const void* w, const void* b,
+        void* y, void* stats, long long rows, int n, int c, float eps, int tile_rows, int grid,
+        int stages, int mask_rows, long long smem, cudaStream_t s) {
+  if (tile_rows > 0)
+    return fwd_tiled<T, kDense>(x, mask, mask_bstride, w, b, y, stats, rows, n, c, eps,
+                                tile_rows, grid, stages, mask_rows, smem, s);
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int r = (int)rows;
+#define VST_FWD(CPL) \
+  return fwd_general<T, CPL, kDense>(x, mask, mask_bstride, w, b, y, stats, r, n, c, eps, s)
+  switch (pick_cpl(c)) {
+    case 1: VST_FWD(1);
+    case 2: VST_FWD(2);
+    case 4: VST_FWD(4);
+    case 8: VST_FWD(8);
+    case 16: VST_FWD(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VST_FWD
+}
+
+// K4's first launch in one dtype and mode, as fwd
+template <typename T, bool kDense>
+int bwd(const void* x, const void* mask, long long mask_bstride, const void* w,
+        const void* stats, const void* g, void* gx, void* partial, int nparts, long long rows,
+        int n, int c, int tile_rows, int stages, int mask_rows, long long smem,
+        cudaStream_t s) {
+  if (tile_rows > 0)
+    return bwd_tiled<T, kDense>(x, mask, mask_bstride, w, stats, g, gx, partial, nparts, rows,
+                                n, c, tile_rows, stages, mask_rows, smem, s);
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int r = (int)rows;
+#define VST_BWD(CPL)                                                                       \
+  return bwd_general<T, CPL, kDense>(x, mask, mask_bstride, w, stats, g, gx, partial, nparts, \
+                                     r, n, c, s)
+  switch (pick_cpl(c)) {
+    case 1: VST_BWD(1);
+    case 2: VST_BWD(2);
+    case 4: VST_BWD(4);
+    case 8: VST_BWD(8);
+    case 16: VST_BWD(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VST_BWD
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, mask, y share it; w, b are float32).
 // rows = B * n; mask_bstride = elements between examples' mask rows (0 to
-// broadcast one mask row over the batch). tile_rows = 0 takes the general path
-// (grid and the rest unused); otherwise the tiled path with that plan.
+// broadcast one mask row over the batch); a null mask is the dense mode
+// (mask_rows 0). tile_rows = 0 takes the general path (grid and the rest
+// unused); otherwise the tiled path with that plan.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for what neither takes.
 int vst_masked_ln_fwd(const void* x, const void* mask, long long mask_bstride,
                       const void* w, const void* b, void* y, void* stats, long long rows,
@@ -861,36 +982,24 @@ int vst_masked_ln_fwd(const void* x, const void* mask, long long mask_bstride,
                       int mask_rows, long long smem, void* stream) {
   if (c % 4 != 0 || rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_rows > 0) {
-    if (dtype == 1)
-      return fwd_tiled<__nv_bfloat16>(x, mask, mask_bstride, w, b, y, stats, rows, n, c, eps,
-                                      tile_rows, grid, stages, mask_rows, smem, s);
-    if (dtype == 0)
-      return fwd_tiled<float>(x, mask, mask_bstride, w, b, y, stats, rows, n, c, eps,
-                              tile_rows, grid, stages, mask_rows, smem, s);
-    return (int)cudaErrorInvalidValue;
+#define VST_FWD(T, D) \
+  return fwd<T, D>(x, mask, mask_bstride, w, b, y, stats, rows, n, c, eps, tile_rows, grid, \
+                   stages, mask_rows, smem, s)
+  if (dtype == 1) {
+    if (mask) VST_FWD(__nv_bfloat16, false);
+    VST_FWD(__nv_bfloat16, true);
   }
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-#define VST_FWD(T, CPL) \
-  return fwd_general<T, CPL>(x, mask, mask_bstride, w, b, y, stats, (int)rows, n, c, eps, s)
-#define VST_FWD_CPL(T)                          \
-  switch (pick_cpl(c)) {                        \
-    case 1: VST_FWD(T, 1);                      \
-    case 2: VST_FWD(T, 2);                      \
-    case 4: VST_FWD(T, 4);                      \
-    case 8: VST_FWD(T, 8);                      \
-    case 16: VST_FWD(T, 16);                    \
-    default: return (int)cudaErrorInvalidValue; \
+  if (dtype == 0) {
+    if (mask) VST_FWD(float, false);
+    VST_FWD(float, true);
   }
-  if (dtype == 1) { VST_FWD_CPL(__nv_bfloat16) }
-  if (dtype == 0) { VST_FWD_CPL(float) }
   return (int)cudaErrorInvalidValue;
-#undef VST_FWD_CPL
 #undef VST_FWD
 }
 
 // partial: float32 scratch of (nparts, 2, c), one per block of the first
-// launch; gw, gb: float32 (c,), written by the fold.
+// launch; gw, gb: float32 (c,), written by the fold. A null mask is the
+// dense mode, as in vst_masked_ln_fwd.
 int vst_masked_ln_bwd(const void* x, const void* mask, long long mask_bstride,
                       const void* w, const void* stats, const void* g, void* gx,
                       void* partial, int nparts, void* gw, void* gb, long long rows, int n,
@@ -899,32 +1008,15 @@ int vst_masked_ln_bwd(const void* x, const void* mask, long long mask_bstride,
   if (c % 4 != 0 || nparts < 1 || rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = (int)cudaErrorInvalidValue;
-  if (tile_rows > 0) {
-    if (dtype == 1)
-      rc = bwd_tiled<__nv_bfloat16>(x, mask, mask_bstride, w, stats, g, gx, partial, nparts,
-                                    rows, n, c, tile_rows, stages, mask_rows, smem, s);
-    else if (dtype == 0)
-      rc = bwd_tiled<float>(x, mask, mask_bstride, w, stats, g, gx, partial, nparts, rows, n,
-                            c, tile_rows, stages, mask_rows, smem, s);
-  } else if (rows <= 0x7fffffffLL) {
-#define VST_BWD(T, CPL)                                                                 \
-  rc = bwd_general<T, CPL>(x, mask, mask_bstride, w, stats, g, gx, partial, nparts,     \
-                           (int)rows, n, c, s);                                         \
-  break
-#define VST_BWD_CPL(T)                 \
-  switch (pick_cpl(c)) {               \
-    case 1: VST_BWD(T, 1);             \
-    case 2: VST_BWD(T, 2);             \
-    case 4: VST_BWD(T, 4);             \
-    case 8: VST_BWD(T, 8);             \
-    case 16: VST_BWD(T, 16);           \
-    default: break;                    \
+#define VST_BWD(T, D)                                                                      \
+  rc = bwd<T, D>(x, mask, mask_bstride, w, stats, g, gx, partial, nparts, rows, n, c, \
+                 tile_rows, stages, mask_rows, smem, s)
+  if (dtype == 1) {
+    if (mask) VST_BWD(__nv_bfloat16, false); else VST_BWD(__nv_bfloat16, true);
+  } else if (dtype == 0) {
+    if (mask) VST_BWD(float, false); else VST_BWD(float, true);
   }
-    if (dtype == 1) { VST_BWD_CPL(__nv_bfloat16) }
-    else if (dtype == 0) { VST_BWD_CPL(float) }
-#undef VST_BWD_CPL
 #undef VST_BWD
-  }
   if (rc) return rc;
   return fold(partial, nparts, c, gw, gb, s);
 }
