@@ -180,12 +180,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    lines on stderr; its errors within tolerance, every kernel launched
    exactly as often as the run calls it, and the lab's kernels against their
    plain versions at the lab's shapes;
-9. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
+9. swin (after the op-level and extra-shape paths; ``--phase swin`` runs
+   it alone after the build): the windowed cosine attention
+   (``csrc/window_attention.cu``) at SwinV2-B's six stage shapes at 256
+   images, out and the three gradients against the plain function with q'
+   and k' rounded as the kernels round them (``BF16_TOL``), each direction
+   timed beside its bound, the plain version and SDPA with a float
+   ``attn_mask``; then SwinV2-B's train step at 256 px and 256 images,
+   Mixup/CutMix and erasing, 24 launches of each window-attention record
+   and 53 of each dense layer norm a step, its rate and peak;
+10. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
    reports (``train``; ``searched``; ``finetune``; ``distill``; ``ops``;
    ``shapes``; ``lab``; ``search``, the stats route; ``search_fused``;
    ``dist``, K1-K4 at a rank's 256 rows, launches of rank 0's train steps
    and scoring forwards; ``recipes``, the launches of the script whose net
-   gives the shape, per train step) and its launches
+   gives the shape, per train step; ``swin``, a SwinV2-B step) and its launches
    per pass of that path (a train step, one call of each op-level entry
    point, one call at one of the extra shapes, one shape of the lab, or a
    scoring forward), then the last line ``{"ok": true, "device": {...}}``.
@@ -225,7 +234,13 @@ ATTENTION, MASKED_LNS = 3 * 6, 3 * 6 * 2 + 2 + 1
 KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd",
                 "masked_layer_norm_bwd", "row_sum_sumsq", "attention_fwd", "attention_bwd",
                 "attention_qkv_t_fwd", "attention_qkv_t_bwd", "lab_fwd_t", "lab_bwd_t",
-                "lab_split_dq", "lab_split_dkv", "layer_norm_fwd", "layer_norm_bwd")
+                "lab_split_dq", "lab_split_dkv", "layer_norm_fwd", "layer_norm_bwd",
+                "window_attention_fwd", "window_attention_bwd")
+# SwinV2-B's windowed attention at 256 px, 256 images: (windows B * nW, N,
+# heads, shift, the stage's resolution), each stage's unshifted and shifted
+# blocks (stages 3 and 4 are one window and never shift)
+SWIN_STAGES = ((4096, 256, 4, 0, 64), (4096, 256, 4, 8, 64), (1024, 256, 8, 0, 32),
+               (1024, 256, 8, 8, 32), (256, 256, 16, 0, 16), (256, 64, 32, 0, 8))
 
 
 def per_pass(**counts):
@@ -2925,9 +2940,157 @@ def check_recipe_kernels(reps: int, routes: dict):
     return entries
 
 
+def window_inputs(bw: int, n: int, h: int, shift: int, r: int, seed: int):
+    """A windowed-attention call's bf16 projection and cotangent, a scale
+    near 10 per head, a bias in (0, 16) and, shifted, the region ids."""
+    import torch
+    from vit_search_torch.models import swin_v2
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(bw, n, 3 * h * 32, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(bw, n, h * 32, device="cuda", generator=gen).bfloat16()
+    scale = torch.exp(math.log(10.0) + 0.3 * torch.randn(h, device="cuda", generator=gen))
+    bias = 16 * torch.sigmoid(torch.randn(h, n, n, device="cuda", generator=gen))
+    regions = swin_v2.shift_regions(r, int(math.sqrt(n)), shift).cuda() if shift else None
+    return qkv, g, scale, bias, regions
+
+
+def window_work(bw: int, n: int, h: int, d: int, backward: bool):
+    """``(bytes, operations)`` of the windowed attention: the projection,
+    output and cotangents in bf16, the f32 bias read once (and its gradient
+    written once); two N^2 d products forward, five backward."""
+    w, table = h * d, 4.0 * h * n * n
+    if backward:
+        return 2.0 * bw * n * 7 * w + 2 * table, 10.0 * bw * h * n * n * d
+    return 2.0 * bw * n * 4 * w + table, 4.0 * bw * h * n * n * d
+
+
+def check_window_attention(reps: int):
+    """The windowed cosine attention (SwinV2) at SwinV2-B's stage shapes:
+    out, dqkv, the scale's and the bias's gradients against
+    ``window_attention_plain`` with q' and k' rounded as the kernels round them
+    (``BF16_TOL``), one counted launch of each record per autograd call,
+    and each direction timed beside its bound, the plain version and SDPA
+    with a float ``attn_mask`` (the bias plus the shift mask)."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.ops import window_attention as W
+
+    entries = []
+    for i, (bw, n, h, shift, r) in enumerate(SWIN_STAGES):
+        qkv, g, scale, bias, regions = window_inputs(bw, n, h, shift, r, 17 + i)
+        label = f"SwinV2-B stage {1 + [64, 32, 16, 8].index(r)}" + (" shifted" if shift else "")
+        shape = {"B": bw, "N": n, "H": h, "D": 32, "shift": shift, "dtype": "bfloat16"}
+        leaves = [qkv.clone().requires_grad_(), scale.clone().requires_grad_(),
+                  bias.clone().requires_grad_()]
+        before = (W.WA_FWD.launches, W.WA_BWD.launches)
+        out = W.window_attention(leaves[0], leaves[1], leaves[2], regions, h)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        if (W.WA_FWD.launches, W.WA_BWD.launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"window attention {label}: launches not counted once")
+        ref_leaves = [qkv.float().requires_grad_(), scale.clone().requires_grad_(),
+                      bias.clone().requires_grad_()]
+        ref = W.window_attention_plain(*ref_leaves, regions, h, rounded=True)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, g.float())
+        err_fwd = compare(f"window attention forward {label}", out, ref, BF16_TOL)
+        err_bwd = max(compare(f"window attention backward {label} ({what})", a, b, BF16_TOL)
+                      for what, a, b in zip(("dqkv", "dscale", "dbias"), grads, ref_grads))
+        del out, grads, ref, ref_grads, ref_leaves, leaves
+        _, qkvn, rn = W.window_attention_fwd_cuda(qkv, scale, bias, regions, h)
+        fwd_ms = graph_ms(W.window_attention_fwd_cuda, (qkv, scale, bias, regions, h), reps)
+        bwd_ms = graph_ms(W.window_attention_bwd_cuda, (qkvn, rn, scale, bias, regions, g, h),
+                          reps)
+        fwd_call_ms = time_ms(lambda: W.window_attention_fwd_cuda(qkv, scale, bias, regions, h),
+                              reps)
+        bwd_call_ms = time_ms(lambda: W.window_attention_bwd_cuda(qkvn, rn, scale, bias, regions,
+                                                                  g, h), reps)
+        pleaves = [qkv.float().requires_grad_(), scale.clone().requires_grad_(),
+                   bias.clone().requires_grad_()]
+        plain_fwd_ms = time_ms(lambda: W.window_attention_plain(qkv, scale, bias, regions, h),
+                               reps)
+        plain_all_ms = time_ms(lambda: torch.autograd.grad(
+            W.window_attention_plain(*pleaves, regions, h), pleaves, g.float()), reps)
+        # SDPA over q' and k' with the bias and shift mask as a float mask
+        q, k, v = qkv.view(bw, n, 3, h, 32).permute(2, 0, 3, 1, 4)
+        mask = bias.bfloat16().expand(bw, h, n, n)
+        if regions is not None:
+            mask = (bias[None] + W.region_mask(regions)[:, None]).bfloat16().repeat(
+                bw // regions.shape[0], 1, 1, 1)
+        sq = (F.normalize(q.float(), dim=-1) * scale.view(1, h, 1, 1)).bfloat16()
+        sk = F.normalize(k.float(), dim=-1).bfloat16()
+        sl = [t.detach().clone().requires_grad_() for t in (sq, sk, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*sl, attn_mask=mask, scale=1.0)
+
+        with torch.no_grad():
+            lib_fwd_ms = time_ms(sdpa, reps)
+        g_view = g.view(bw, n, h, 32).transpose(1, 2)
+        lib_all_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sl, g_view), reps)
+        bf = bound(*window_work(bw, n, h, 32, False), PEAK_BF16)
+        bb = bound(*window_work(bw, n, h, 32, True), PEAK_BF16)
+        tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
+        common = dict(stage=label, shape=shape, path="swin", tolerance=tolerance)
+        entries.append(dict(name="window_attention_fwd", **common, max_abs_err=err_fwd,
+                            ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms,
+                            bound_ms=bf[0], bound_by=bf[1], library_ms=lib_fwd_ms,
+                            library_call="F.scaled_dot_product_attention, float attn_mask"))
+        entries.append(dict(name="window_attention_bwd", **common, max_abs_err=err_bwd,
+                            ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_all_ms - plain_fwd_ms,
+                            bound_ms=bb[0], bound_by=bb[1], library_ms=lib_all_ms - lib_fwd_ms,
+                            library_call="F.scaled_dot_product_attention (forward+backward) "
+                                         "- forward, float attn_mask"))
+        log(f"window attention {label}: fwd {fwd_ms:.4f} ms (bound {bf[0]:.4f}, plain "
+            f"{plain_fwd_ms:.3f}, SDPA {lib_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (bound "
+            f"{bb[0]:.4f}, plain {plain_all_ms - plain_fwd_ms:.3f}, SDPA "
+            f"{lib_all_ms - lib_fwd_ms:.4f}); max abs err {err_fwd:.3e} / {err_bwd:.3e}")
+        del qkv, g, qkvn, rn, mask, sl, pleaves
+        torch.cuda.empty_cache()
+    return entries
+
+
+def swin_phase(reps: int) -> dict:
+    """The windowed attention at SwinV2-B's stage shapes, then one
+    SwinV2-B step at 256 px and 256 images with the recipe's draws:
+    launches per step and its rate and peak."""
+    import torch
+    from vit_search_torch import models, train
+    from vit_search_torch.ops import kernels
+
+    entries = check_window_attention(reps)
+    model = models.create_model("swinv2_base_window16_256", dtype=torch.bfloat16,
+                                device="cuda")
+    ocfg = train.OptimConfig(base_lr=5e-4, min_lr=1e-5, warmup_lr=1e-6, warmup_epochs=20,
+                             epochs=300, clip_grad=5.0, global_batch_size=1024)
+    tcfg = train.TrainConfig(mixup_mode="mixup", erasing_prob=0.25)
+    step = train.make_train_step(model, train.make_optimizer(ocfg, model), tcfg,
+                                 schedule=train.lr_schedule(ocfg), device="cuda")
+    images, labels = synthetic_batch(256, 256, 0)
+    for _ in range(WARMUP):
+        step(images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step(images, labels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    per = {"window_attention_fwd": 24, "window_attention_bwd": 24,
+           "layer_norm_fwd": 53, "layer_norm_bwd": 53}
+    check_launches(launches, per, STEPS, "SwinV2-B steps")
+    return {"entries": entries, "imgs_per_s": STEPS * 256 / seconds,
+            "step_ms": 1e3 * seconds / STEPS, "launches": launches, "per_step": per,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
+    parser.add_argument("--phase", choices=("all", "swin"), default="all",
+                        help="every phase, or only the SwinV2 phase (after the build)")
     parser.add_argument("--dist-worker", nargs=4, default=None,
                         metavar=("RANK", "WORLD", "STORE", "OUT"),
                         help="run one rank of the dist phase (the script starts these)")
@@ -2942,6 +3105,7 @@ def main(argv=None) -> int:
         rank, world, store, out = args.dist_worker
         return dist_worker(int(rank), int(world), store, out)
     from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
+    from vit_search_torch.ops import window_attention  # noqa: F401
     from vit_search_torch.tools import attn_lab  # noqa: F401
 
     if sorted(KERNEL_NAMES) != sorted(k.name for k in kernels.KERNELS):
@@ -2964,6 +3128,19 @@ def main(argv=None) -> int:
     log("K3/K4 registers (ptxas): " + "; ".join(
         f"{r['kernel']} {r['registers']} regs, spills {r['spill_stores']}/{r['spill_loads']} B"
         for r in regs))
+
+    if args.phase == "swin":
+        report["swin"] = sw = swin_phase(REPS)
+        print(f"swin: SwinV2-B step {sw['imgs_per_s']:.1f} imgs/s ({sw['step_ms']:.1f} ms/step, "
+              f"batch 256 at 256 px) peak memory "
+              f"{sw['max_memory_allocated_bytes'] / 2**30:.2f} GiB on {card}; launches a step "
+              f"{json.dumps(sw['per_step'])}", flush=True)
+        print(json.dumps({"kernels": sw["entries"]}), flush=True)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke_swin.json"), "w") as f:
+                json.dump(report, f, indent=1)
+        return 0
 
     # K2's routes at the recipes' shapes by kernel name, in the process's
     # first profiler session
@@ -3026,6 +3203,13 @@ def main(argv=None) -> int:
         f"K6/K7 {shapes['launches']['attention_fwd']}/{shapes['launches']['attention_bwd']}, "
         f"K8/K9 {shapes['launches']['attention_qkv_t_fwd']}/"
         f"{shapes['launches']['attention_qkv_t_bwd']}")
+
+    report["swin"] = sw = swin_phase(REPS)
+    entries += sw["entries"]
+    print(f"swin: SwinV2-B step {sw['imgs_per_s']:.1f} imgs/s ({sw['step_ms']:.1f} ms/step, "
+          f"batch 256 at 256 px) peak memory {sw['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+          f"on {card}", flush=True)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     maker.join()
@@ -3187,7 +3371,8 @@ def main(argv=None) -> int:
             "lab": (lab, PER_LAB_SHAPE),
             "search": (searches["stats"], PER_FORWARD["stats"]),
             "search_fused": (searches["fused"], PER_FORWARD["fused"]),
-            "dist": (dt, PER_STEP)}
+            "dist": (dt, PER_STEP),
+            "swin": (sw, sw["per_step"])}
     by_name = {k.name: k for k in kernels.KERNELS}
     for e in entries:
         k = by_name[e["name"]]

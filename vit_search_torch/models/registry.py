@@ -3,7 +3,8 @@
 Port of vit_search_tpu/models/registry.py, every name: the ViT-SR patch-14
 nets (the six 224 px names and the 280/336/392 px patch-output nets the
 finetune scripts train), the flexible flat ViTs (patch 16), the stock and
-distilled DeiT nets, and the RegNetY-16GF teacher. ``*_supernet`` names
+distilled DeiT nets, and the RegNetY-16GF teacher; and, not in the JAX
+package, SwinV2-B (``swinv2_base_window16_256``). ``*_supernet`` names
 build the same module as their base name: supernet training is a property of
 the masks fed at call time.
 """
@@ -17,6 +18,7 @@ from torch import nn
 from ..arch import presets
 from ..arch.presets import flat_vit_def
 from .regnet import RegNetYUpsample
+from .swin_v2 import SwinTransformerV2
 from .vit_sr import VisionTransformerSR
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -39,7 +41,8 @@ def create_model(name: str, **kwargs) -> nn.Module:
     """Instantiate a registered model on the CUDA device (``device="cpu"``
     to build it on the CPU). Keyword arguments go to
     :class:`VisionTransformerSR` (``gelu``, ``ln_route``, ``dtype``, ...),
-    or to :class:`RegNetYUpsample` for the teacher."""
+    to :class:`RegNetYUpsample` for the teacher, or to
+    :class:`SwinTransformerV2`."""
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -177,6 +180,19 @@ def deit_tiny_167X_distill_patch16_224(**kwargs):
 @register_model
 def deit_small_distill_patch16_224(**kwargs):
     return _deit(384, 6, distill_token=True, **kwargs)
+
+
+# --- SwinV2 ----------------------------------------------------------------------
+
+@register_model
+def swinv2_base_window16_256(**kwargs):
+    """SwinV2-B at 256 px, window 16 (``swinv2_base_patch4_window16_256.yaml``):
+    embed 128, depths 2 / 2 / 18 / 2, heads 4 / 8 / 16 / 32; ``embed_dim``,
+    ``depths``, ``num_heads``, ``window_size`` and ``img_size`` may be given."""
+    if kwargs.pop("network_def", None) is not None:
+        raise ValueError("SwinV2 is not built from a network_def")
+    kwargs.setdefault("drop_path_rate", 0.5)
+    return SwinTransformerV2(**kwargs)
 
 
 # --- teacher ---------------------------------------------------------------------

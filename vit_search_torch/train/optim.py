@@ -6,7 +6,9 @@ Port of vit_search_tpu/train/optim.py:
   torch defaults, weight decay 0.05. ``torch.optim.AdamW``'s update equals
   optax ``adamw``'s: ``p <- p * (1 - lr*wd) - lr * m_hat / (sqrt(v_hat) + eps)``;
 - weight decay applies to parameters of rank > 1 except the token table
-  (``pos_embed`` included), the JAX package's mask (optim.py:180-188);
+  (``pos_embed`` included), the JAX package's mask (optim.py:180-188), and
+  except any whose name holds one of the model's
+  ``no_weight_decay_keywords()`` (SwinV2's ``cpb_mlp`` and ``logit_scale``);
 - the per-epoch LR curve of timm 0.3.2's schedulers (cosine, step, tanh,
   optional noise), constant within an epoch;
 - ``clip_grad``: optax ``clip_by_global_norm`` before AdamW, as the JAX
@@ -126,10 +128,13 @@ def lr_schedule(config: OptimConfig) -> Callable[[int], float]:
 
 
 def weight_decay_groups(model: nn.Module) -> Tuple[List[nn.Parameter], List[nn.Parameter]]:
-    """``(decay, no_decay)``: rank > 1 parameters except ``tokens`` decay."""
+    """``(decay, no_decay)``: rank > 1 parameters except ``tokens`` and
+    those named by the model's ``no_weight_decay_keywords()`` decay."""
+    skip = getattr(model, "no_weight_decay_keywords", tuple)()
     decay, no_decay = [], []
     for name, p in model.named_parameters():
-        if p.ndim > 1 and name.split(".")[-1] != "tokens":
+        if (p.ndim > 1 and name.split(".")[-1] != "tokens"
+                and not any(k in name for k in skip)):
             decay.append(p)
         else:
             no_decay.append(p)
