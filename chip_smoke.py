@@ -35,7 +35,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of 64); and K3/K4's dense mode (a net without masks) at
    ViT-ResNAS-Medium's stage shapes at 224 px (B = 1024) and at 392 px
    (B = 256) against the plain dense layer norm in float32, timed beside it
-   and ``F.layer_norm``;
+   and ``F.layer_norm``; then the conv stem's batch norm with its ReLU (B1,
+   and B2 in train mode, ``csrc/batch_norm.cu``) at the cells' stem shapes
+   (``STEM_CASES``: B 1024 at 224 px and B 256 at 392 px in train mode, B
+   2048 at 224 px in eval mode; 24 channels at half resolution, in the
+   layout the stem's convolution returns) against the float32 PyTorch ops
+   the port ran before, timed beside its bound (three passes over the
+   activation forward, five backward), those ops and ``F.batch_norm`` with
+   ``F.relu`` (cuDNN), and the whole ``PatchConvEmbed`` through its module:
+   3 / 3 / 3 launches of ``batch_norm_stats`` / ``_apply`` / ``_bwd`` a
+   train pass, 0 / 3 / 0 an eval forward, each norm's input and gradient
+   layout, no float32 activation saved for the backward (``--phase stem``
+   runs this alone after the build);
 4. a small conv-stem supernet: the port's forward and one train step on the
    card (kernels) against the same on the CPU (plain versions), in float32
    (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
@@ -235,7 +246,8 @@ KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd
                 "masked_layer_norm_bwd", "row_sum_sumsq", "attention_fwd", "attention_bwd",
                 "attention_qkv_t_fwd", "attention_qkv_t_bwd", "lab_fwd_t", "lab_bwd_t",
                 "lab_split_dq", "lab_split_dkv", "layer_norm_fwd", "layer_norm_bwd",
-                "window_attention_fwd", "window_attention_bwd")
+                "window_attention_fwd", "window_attention_bwd", "batch_norm_stats",
+                "batch_norm_apply", "batch_norm_bwd")
 # SwinV2-B's windowed attention at 256 px, 256 images: (windows B * nW, N,
 # heads, shift, the stage's resolution), each stage's unshifted and shifted
 # blocks (stages 3 and 4 are one window and never shift)
@@ -248,14 +260,29 @@ def per_pass(**counts):
     return {name: counts.get(name, 0) for name in KERNEL_NAMES}
 
 
-# a train step: K1/K2 on every attention layer, K3/K4 on every masked LN
-PER_STEP = per_pass(attention_qkv_fwd=ATTENTION, attention_qkv_bwd=ATTENTION,
-                    masked_layer_norm_fwd=MASKED_LNS, masked_layer_norm_bwd=MASKED_LNS)
+# the Conv-BN-ReLU layers of a conv stem (network_def types 4/5)
+STEM_NORMS = 3
+
+
+def with_stem(per: dict, norms: int, train: bool) -> dict:
+    """``per`` with the batch norms of a stem of ``norms`` of them: B1's
+    statistics and normalize and B2 a train step, B1's normalize alone an
+    eval or scoring forward."""
+    return dict(per, batch_norm_stats=norms if train else 0, batch_norm_apply=norms,
+                batch_norm_bwd=norms if train else 0)
+
+
+# a train step: K1/K2 on every attention layer, K3/K4 on every masked LN,
+# B1/B2 on the conv stem's norms
+PER_STEP = with_stem(per_pass(attention_qkv_fwd=ATTENTION, attention_qkv_bwd=ATTENTION,
+                              masked_layer_norm_fwd=MASKED_LNS,
+                              masked_layer_norm_bwd=MASKED_LNS), STEM_NORMS, True)
 # a scoring forward: no backward; the masked LNs take K3 on ln_route="fused"
 # (the default) and K5 on ln_route="stats"
-PER_FORWARD = {route: per_pass(attention_qkv_fwd=ATTENTION,
-                               **{("masked_layer_norm_fwd" if route == "fused"
-                                   else "row_sum_sumsq"): MASKED_LNS})
+PER_FORWARD = {route: with_stem(per_pass(attention_qkv_fwd=ATTENTION,
+                                         **{("masked_layer_norm_fwd" if route == "fused"
+                                             else "row_sum_sumsq"): MASKED_LNS}),
+                                STEM_NORMS, False)
                for route in ("fused", "stats")}
 # a pass of the op-level API: one call of each entry point with its backward
 # (fused_attention_packed and fused_attention: K6/K7; fused_attention_qkv_t:
@@ -298,13 +325,15 @@ EMA_DECAY = 0.99996
 ERASING = {"erasing_prob": 0.25, "erasing_mode": "pixel"}
 # (their layer norms on K3/K4's dense mode: 2 x 16 + 2 + 1 and 2 x 20 + 2 +
 # 1, ``dense_lns``)
-PER_SEARCHED_STEP = per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16, layer_norm_fwd=35,
-                             layer_norm_bwd=35)
-PER_FINETUNE_STEP = per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20, layer_norm_fwd=43,
-                             layer_norm_bwd=43)
+PER_SEARCHED_STEP = with_stem(per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16,
+                                       layer_norm_fwd=35, layer_norm_bwd=35), STEM_NORMS, True)
+PER_FINETUNE_STEP = with_stem(per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20,
+                                       layer_norm_fwd=43, layer_norm_bwd=43), STEM_NORMS, True)
 # the mixup path: super_net/no_distill/tiny_mh.sh, which trains the supernet
 # with timm Mixup/CutMix (no --use-patch-mixup), its network_def read from
-# the script; the same launches as the train step (K1/K2 18, K3/K4 39)
+# the script; the train step's K1-K4 launches (K1/K2 18, K3/K4 39) and, its
+# stem linear, no batch norm
+PER_MIXUP_STEP = with_stem(PER_STEP, 0, True)
 MIXUP_SCRIPT = "scripts/vit-sr-nas/super_net/no_distill/tiny_mh.sh"
 MIXUP_MODEL = "flexible_vit_sr_patch14_224_supernet"
 MIXUP = {"mixup_mode": "mixup", "mixup_alpha": 0.8, "cutmix_alpha": 1.0,
@@ -313,7 +342,8 @@ MIXUP = {"mixup_mode": "mixup", "mixup_alpha": 0.8, "cutmix_alpha": 1.0,
 # README: deit_small_distilled_patch16_224 --distillation-type hard
 # --teacher-model regnety_160) at the batch the other paths take (DeiT's
 # global 1024 halved); 12 blocks of 6 heads of 64 at N = 196 + 2 tokens, 25
-# dense layer norms (no SR block)
+# dense layer norms (no SR block); the teacher's batch norms in eval mode,
+# B1's normalize once each a step (counted from the teacher)
 DISTILL_MODEL = "deit_small_distill_patch16_224"
 TEACHER_MODEL = "regnety_160_upsample"
 PER_DISTILL_STEP = per_pass(attention_qkv_fwd=12, attention_qkv_bwd=12, layer_norm_fwd=25,
@@ -326,6 +356,14 @@ MEDIUM_BATCH = 1024
 # (N, C) of the 392 px finetune's three stages, at its script's batch
 MEDIUM_392_STAGES = ((785, 240), (197, 640), (50, 880))
 MEDIUM_392_BATCH = 256
+# B1/B2 at the cells' conv stem shapes: (label, batch, image px, train, the
+# path whose launches the entry reports): the train step at 224 px
+# (tiny_supernet.train, medium.train) and at 392 px (medium.finetune392), and
+# a scoring forward (tiny_supernet.search); 24 channels at half resolution
+STEM_CASES = (("train 224px", 1024, 224, True, "train"),
+              ("train 392px", 256, 392, True, "finetune"),
+              ("eval 224px", 2048, 224, False, "search_fused"))
+STEM_CHANNELS = 24
 # loader and cli: super_net/tiny.sh on a synthetic image folder of 1000
 # classes (the heads keep their published width), 4 train images per class
 # at 256 px, 1 per class held out as the sub-val
@@ -443,6 +481,13 @@ BF16_TOL = (2e-2, 2e-2)
 F32_SUM_TOL = (1e-3, 1e-3)   # gw/gb: the order of the sum differs
 F32_TOL = 1e-4               # float32 attention (CUDA cores): atol and rtol
 STATS_TOL = (1e-4, 1e-4)
+# B1/B2's ReLU: where the statistics are summed in another order, a float32
+# pre-activation z moved by at most 2 ulps of its channel's max|z| (a CPU
+# model of two orders at the stem's shape), so one within KINK_ULPS such ulps
+# of 0 may fall on either side; its dx is not compared, and such elements
+# may be at most KINK_SHARE of the activation
+KINK_ULPS = 8
+KINK_SHARE = 1e-4
 # K3/K4's yardstick: PyTorch's layer norm is the function with a full mask
 LN_LIBRARY_CALL = "F.layer_norm (dense: the full-mask case of the function)"
 # the small net in bf16, card against CPU: on the CPU alone bf16 moves the
@@ -589,6 +634,42 @@ def compare(name: str, got, want, tol, floor: float = 0.0) -> float:
         raise AssertionError(f"{name}: max abs err {max_err:.3e} outside tolerance "
                              f"atol={atol}*max|ref| rtol={rtol}")
     return max_err
+
+
+def relu_kink(name: str, z):
+    """The elements of a float32 (B, C, H, W) pre-activation ``z`` within
+    ``KINK_ULPS`` ulps of their channel's max|z| of 0; raises where they are
+    more than ``KINK_SHARE`` of ``z``."""
+    import torch
+    top = z.detach().abs().amax(dim=(0, 2, 3), keepdim=True)
+    band = z.detach().abs() <= KINK_ULPS * torch.finfo(torch.float32).eps * top
+    share = float(band.float().mean())
+    if share > KINK_SHARE:
+        raise AssertionError(f"{name}: {share:.3e} of the pre-activation lies within "
+                             f"{KINK_ULPS} ulps of 0, more than {KINK_SHARE}")
+    return band
+
+
+def check_relu_norm(what: str, got: tuple, want: tuple, z, tol=BF16_TOL) -> dict:
+    """A batch norm with the ReLU against the plain ops: ``got`` and ``want``
+    each ``(y, running_mean, running_var, (dx, dw, db))``, the gradients empty
+    in eval mode, ``want`` with the plain ops' own ReLU, ``z`` their float32
+    pre-activation. y within ``tol`` everywhere; the running statistics
+    within ``STATS_TOL``, dw and db within ``F32_SUM_TOL``, dx within ``tol``
+    outside :func:`relu_kink`'s band. The largest error of each."""
+    import torch
+    band = relu_kink(what, z)
+    y, rm, rv, grads = got
+    ry, rrm, rrv, rgrads = want
+    errs = {"y": compare(f"{what} y", y, ry, tol)}
+    if grads:
+        errs["running"] = max(compare(f"{what} running mean", rm, rrm, STATS_TOL),
+                              compare(f"{what} running var", rv, rrv, STATS_TOL))
+        errs["dx"] = compare(f"{what} dx", torch.where(band, rgrads[0], grads[0]), rgrads[0],
+                             tol)
+        errs["dw_db"] = max(compare(f"{what} dw", grads[1], rgrads[1], F32_SUM_TOL),
+                            compare(f"{what} db", grads[2], rgrads[2], F32_SUM_TOL))
+    return errs
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -930,6 +1011,209 @@ def check_layer_norm(label: str, n: int, c: int, reps: int, batch: int, path: st
                  ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_bwd_ms, bound_ms=bbwd[0],
                  bound_by=bbwd[1], library_ms=lib_bwd_ms,
                  library_call="F.layer_norm (forward+backward) - forward", plan=plans[1])]
+
+
+def stem_activation(batch: int, img: int, seed: int):
+    """A stem norm's input as the stem makes it: ``conv1`` (3x3, stride 2,
+    bf16) of NHWC images viewed as NCHW, in the layout the convolution
+    returns."""
+    import torch
+    from vit_search_torch.models.patch_embed import ConvBnAct, conv2d
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn(batch, img, img, 3, device="cuda", generator=gen)
+    layer = ConvBnAct(3, STEM_CHANNELS, 2, torch.bfloat16,
+                      torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        return conv2d(images.permute(0, 3, 1, 2), layer.conv, torch.bfloat16)
+
+
+def layout_of(t) -> str:
+    import torch
+    if t.is_contiguous():
+        return "nchw"
+    return "channels_last" if t.is_contiguous(memory_format=torch.channels_last) else "other"
+
+
+def check_stem_norm(label: str, batch: int, img: int, train: bool, path: str, reps: int):
+    """B1 (and in train mode B2) at a stem norm's shape, with the ReLU,
+    against the float32 PyTorch ops the port ran before, with their own ReLU
+    (:func:`check_relu_norm`); ``plain_ms`` is those ops under
+    autograd, ``library_ms`` ``F.batch_norm`` (cuDNN) and ``F.relu``, which
+    the port never calls. Bounds: three passes over the activation forward
+    (two in eval mode), five backward."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.ops import batch_norm as BN
+
+    x = stem_activation(batch, img, 700 + img)
+    c = x.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(701)
+    g = torch.empty_like(x).normal_(generator=gen)
+    w = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1.0
+    bias = torch.randn(c, device="cuda", generator=gen) * 0.5
+    stats = [torch.randn(c, device="cuda", generator=gen) * 0.1,
+             torch.rand(c, device="cuda", generator=gen) + 0.5]
+    shape = {"B": batch, "C": c, "H": x.shape[2], "W": x.shape[3], "dtype": "bfloat16",
+             "layout": layout_of(x), "train": train}
+    what = f"stem batch norm {label} (B, C, H, W) = {tuple(x.shape)} {shape['layout']}"
+
+    def run(fn):
+        rm, rv = (t.clone() for t in stats)
+        leaf, lw, lb = (t.clone().requires_grad_(train) for t in (x, w, bias))
+        with torch.set_grad_enabled(train):
+            y = fn(leaf, lw, lb, rm, rv, train, 0.9, 1e-5, True)
+            grads = torch.autograd.grad(y, (leaf, lw, lb), g) if train else ()
+        return y.detach(), rm, rv, grads
+
+    with torch.no_grad():
+        z = BN.batch_norm_plain(x.float(), w, bias, *(t.clone() for t in stats), train, 0.9,
+                                1e-5, False)
+    errs = check_relu_norm(what, run(BN.batch_norm), run(BN.batch_norm_plain), z)
+    del z
+
+    rm, rv = (t.clone() for t in stats)
+    if train:
+        mean, var, n = BN.batch_stats_cuda(x, rm, rv, 0.9)
+
+        def forward(x, rm, rv):
+            m, v, _ = BN.batch_stats_cuda(x, rm, rv, 0.9)
+            return BN.batch_norm_apply_cuda(x, m, v, w, bias, 1e-5, True)
+    else:
+        mean, var, n = rm, rv, 0
+
+        def forward(x, rm, rv):
+            return BN.batch_norm_apply_cuda(x, rm, rv, w, bias, 1e-5, True)
+    fwd_ms = graph_ms(forward, (x, rm, rv), reps)
+    leaf = x.clone().requires_grad_(train)
+    with torch.no_grad():
+        fwd_call_ms = time_ms(lambda: BN.batch_norm(leaf, w, bias, rm, rv, train, 0.9, 1e-5,
+                                                    True), reps)
+    px, pw, pb = (t.clone().requires_grad_(train) for t in (x, w, bias))
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: BN.batch_norm_plain(px, pw, pb, rm, rv, train, 0.9,
+                                                           1e-5, True), reps)
+    lw, lb = w.clone().requires_grad_(train), bias.clone().requires_grad_(train)
+
+    def library():
+        return F.relu(F.batch_norm(leaf, rm, rv, lw, lb, train, 0.1, 1e-5))
+
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(library, reps)
+    fwd_bytes = (3 if train else 2) * nbytes(x)
+    bfwd = bound(fwd_bytes, 0.0, PEAK_F32)
+    entries = [dict(name="batch_norm_apply", stage=label, shape=shape, path=path,
+                    max_abs_err=errs["y"], errors=errs,
+                    tolerance=(f"y, dx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
+                               f"running statistics {STATS_TOL}; dw/db {F32_SUM_TOL}"),
+                    ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
+                    bound_by=bfwd[1], library_ms=lib_fwd_ms,
+                    library_call="F.relu(F.batch_norm(...)) forward (cuDNN)",
+                    what=("B1 statistics and normalize" if train else "B1 normalize"))]
+    line = (f"{what}: B1 {fwd_ms:.4f} ms (bound {bfwd[0]:.4f}, {fwd_call_ms:.4f} per call); "
+            f"plain {plain_fwd_ms:.3f} ms; cuDNN {lib_fwd_ms:.4f} ms")
+    if train:
+        bwd_ms = graph_ms(BN.batch_norm_bwd_cuda,
+                          (x, g, mean, var, w, bias, 1e-5, True, 1.0 / n), reps)
+        bwd_call_ms = time_ms(lambda: torch.autograd.grad(
+            BN.batch_norm(leaf, w, bias, rm, rv, True, 0.9, 1e-5, True), leaf, g),
+            reps) - fwd_call_ms
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            BN.batch_norm_plain(px, pw, pb, rm, rv, True, 0.9, 1e-5, True), (px, pw, pb), g),
+            reps) - plain_fwd_ms
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(library(), (leaf, lw, lb), g),
+                             reps) - lib_fwd_ms
+        bbwd = bound(5 * nbytes(x), 0.0, PEAK_F32)
+        entries.append(dict(name="batch_norm_bwd", stage=label, shape=shape, path=path,
+                            max_abs_err=errs["dx"], errors=errs, tolerance=entries[0]["tolerance"],
+                            ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_bwd_ms,
+                            bound_ms=bbwd[0], bound_by=bbwd[1], library_ms=lib_bwd_ms,
+                            library_call="F.relu(F.batch_norm(...)) (forward+backward) - forward",
+                            what="B2 sums and dx"))
+        line += (f"; B2 {bwd_ms:.4f} ms (bound {bbwd[0]:.4f}, {bwd_call_ms:.4f} per call); "
+                 f"plain {plain_bwd_ms:.3f} ms; cuDNN {lib_bwd_ms:.4f} ms")
+    log(line + f"; errors {json.dumps(errs)}")
+    return entries
+
+
+def stem_module(batch: int = 1024, img: int = 224, reps: int = 5) -> dict:
+    """The whole ``PatchConvEmbed`` of the ViT-ResNAS cells (24 channels,
+    embed 240, bf16) through its module: a train forward and backward, then
+    an eval forward; each norm's input and gradient layouts as they arrive,
+    the launches of each record, the largest float32 tensor saved for the
+    backward, and each pass's time."""
+    import torch
+    from vit_search_torch.models.patch_embed import ConvBnAct, PatchConvEmbed
+    from vit_search_torch.ops import kernels
+
+    stem = PatchConvEmbed(img, 14, 240, STEM_CHANNELS, torch.bfloat16,
+                          torch.Generator().manual_seed(0)).cuda()
+    images = torch.randn(batch, img, img, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    layouts = []
+
+    def note(module, args, out):
+        entry = {"y": layout_of(out)}
+        layouts.append(entry)
+        if out.requires_grad:
+            out.register_hook(lambda grad: entry.update(dy=layout_of(grad)))
+
+    hooks = [m.register_forward_hook(note) for m in stem.modules() if isinstance(m, ConvBnAct)]
+    saved = []
+
+    def pack(t):
+        saved.append((str(t.dtype), t.numel()))
+        return t
+
+    kernels.reset_launches()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = stem(images)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    train_launches = {k.name: k.launches for k in kernels.KERNELS if k.name.startswith("batch_")}
+    for h in hooks:
+        h.remove()
+    kernels.reset_launches()
+    with torch.no_grad():
+        stem.eval()(images)
+    eval_launches = {k.name: k.launches for k in kernels.KERNELS if k.name.startswith("batch_")}
+    want_train = with_stem({}, STEM_NORMS, True)
+    want_eval = with_stem({}, STEM_NORMS, False)
+    if train_launches != want_train or eval_launches != want_eval:
+        raise AssertionError(f"stem: launches {train_launches} / {eval_launches}, expected "
+                             f"{want_train} / {want_eval}")
+    f32 = max([n for dtype, n in saved if dtype == "torch.float32"], default=0)
+    activation = batch * STEM_CHANNELS * (img // 2) ** 2
+    if f32 >= activation:
+        raise AssertionError(f"stem: a float32 tensor of {f32} elements is saved for the "
+                             f"backward (an activation holds {activation})")
+    stem.train()
+    grad = torch.ones_like(out)
+
+    def step():
+        stem(images).backward(grad)
+
+    train_ms = time_ms(step, reps)
+    with torch.no_grad():
+        stem.eval()
+        eval_ms = time_ms(lambda: stem(images), reps)
+    return {"batch": batch, "img": img, "layouts": layouts, "train_launches": train_launches,
+            "eval_launches": eval_launches, "largest_saved_float32": f32,
+            "activation_elements": activation, "train_ms": train_ms, "eval_ms": eval_ms}
+
+
+def stem_phase(reps: int) -> dict:
+    """B1/B2 at each of ``STEM_CASES``, then the whole stem module."""
+    entries = []
+    for case in STEM_CASES:
+        entries += check_stem_norm(*case, reps)
+    module = stem_module()
+    log(f"stem module (B {module['batch']}, {module['img']} px): forward+backward "
+        f"{module['train_ms']:.3f} ms, eval forward {module['eval_ms']:.3f} ms; layouts "
+        f"{json.dumps(module['layouts'])}; launches {json.dumps(module['train_launches'])} / "
+        f"eval {json.dumps(module['eval_launches'])}; largest float32 saved "
+        f"{module['largest_saved_float32']}")
+    return {"entries": entries, "module": module}
 
 
 def check_row_stats(stage: int, reps: int, batch: int, path: str):
@@ -1517,6 +1801,8 @@ def searched(steps: int, warmup: int):
         raise AssertionError("PER_SEARCHED_STEP does not count the net's attention layers")
     if dense_lns(net) != PER_SEARCHED_STEP["layer_norm_fwd"]:
         raise AssertionError("PER_SEARCHED_STEP does not count the net's layer norms")
+    if stem_norms(net) != PER_SEARCHED_STEP["batch_norm_apply"]:
+        raise AssertionError("PER_SEARCHED_STEP does not count the net's batch norms")
     model = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
                          drop_path_rate=0.2, gelu="tanh", seed=0)
     ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=300, steps_per_epoch=1000,
@@ -1562,6 +1848,8 @@ def finetune(steps: int, warmup: int):
         raise AssertionError("PER_FINETUNE_STEP does not count the net's attention layers")
     if dense_lns(net) != PER_FINETUNE_STEP["layer_norm_fwd"]:
         raise AssertionError("PER_FINETUNE_STEP does not count the net's layer norms")
+    if stem_norms(net) != PER_FINETUNE_STEP["batch_norm_apply"]:
+        raise AssertionError("PER_FINETUNE_STEP does not count the net's batch norms")
 
     # the searched Medium net: two steps at 224 px, then its checkpoint
     src = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
@@ -1702,7 +1990,7 @@ def mixup(steps: int, warmup: int):
     images, labels = synthetic_batch(BATCH, 224, 4)
     rng = np.random.default_rng(0)
     out = run_steps("mixup", step, images, labels, lambda: sched.sample_packed(rng, BATCH),
-                    steps, warmup, PER_STEP)
+                    steps, warmup, PER_MIXUP_STEP)
     out["network_def"] = repr(net)
     return out
 
@@ -1719,7 +2007,7 @@ def distill(steps: int, warmup: int):
 
     import torch
     from vit_search_torch.arch import network_def as nd
-    from vit_search_torch.models import create_model
+    from vit_search_torch.models import BatchNorm, create_model
     from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
                                         make_optimizer, make_teacher, make_train_step,
                                         normalize)
@@ -1734,6 +2022,8 @@ def distill(steps: int, warmup: int):
         raise AssertionError("PER_DISTILL_STEP does not count the net's layer norms")
     teacher_model = create_model(TEACHER_MODEL, dtype=torch.bfloat16, seed=0)
     forward = make_teacher(teacher_model)
+    per_step = dict(PER_DISTILL_STEP, batch_norm_apply=sum(
+        isinstance(m, BatchNorm) for m in teacher_model.modules()))
     events = []
 
     def teacher(images):
@@ -1751,11 +2041,11 @@ def distill(steps: int, warmup: int):
     step = make_train_step(model, make_optimizer(ocfg, model), cfg, schedule=lr_schedule(ocfg),
                            seed=0, teacher=teacher)
     images, labels = synthetic_batch(BATCH, 224, 5)
-    out = run_steps("distill", step, images, labels, lambda: None, steps, warmup,
-                    PER_DISTILL_STEP)
+    out = run_steps("distill", step, images, labels, lambda: None, steps, warmup, per_step)
     check_ema("distill", step)
     torch.cuda.synchronize()
     timed = [s.elapsed_time(e) for s, e in events[warmup:warmup + steps]]
+    out["per_step"] = per_step
     out["teacher_ms"] = sum(timed) / len(timed)
     out["teacher_share"] = out["teacher_ms"] / out["step_ms"]
     out["teacher_params"] = sum(p.numel() for p in teacher_model.parameters())
@@ -2109,12 +2399,12 @@ def plant_local_bn():
     alone. Returns its undo."""
     from types import SimpleNamespace
 
-    from vit_search_torch.models import patch_embed
+    from vit_search_torch.ops import batch_norm
 
-    saved = patch_embed.parallel
-    patch_embed.parallel = SimpleNamespace(sum_over_processes=lambda x: x,
-                                           process_count=lambda: 1)
-    return lambda: setattr(patch_embed, "parallel", saved)
+    saved = batch_norm.parallel
+    batch_norm.parallel = SimpleNamespace(sum_over_processes=lambda x: x,
+                                          process_count=lambda: 1)
+    return lambda: setattr(batch_norm, "parallel", saved)
 
 
 def plant_local_drop_path():
@@ -2583,7 +2873,8 @@ def study(root: str, started):
     gelu_s = time.perf_counter() - t0
     counted = {k.name: k.launches for k in kernels.KERNELS}
     launches = {name: counted.get(name, 0) for name in KERNEL_NAMES}
-    want = per_pass(attention_qkv_fwd=2 * blocks, layer_norm_fwd=2 * dense_lns(winner))
+    want = per_pass(attention_qkv_fwd=2 * blocks, layer_norm_fwd=2 * dense_lns(winner),
+                    batch_norm_apply=2 * stem_norms(winner))
     if launches != want:
         raise AssertionError(f"study: gelu_delta launches {launches}, expected {want} "
                              f"(2 forwards x {blocks} attention blocks on the kernel and "
@@ -2636,18 +2927,26 @@ def dense_lns(network_def) -> int:
             + sum(nd.block_type(b) == nd.SPATIAL_REDUCTION for b in network_def))
 
 
+def stem_norms(network_def) -> int:
+    """The batch norms of a net: a conv stem's, none in a linear stem."""
+    from vit_search_torch.arch import network_def as nd
+
+    return 0 if nd.block_type(network_def[0]) == nd.LINEAR_EMBED else STEM_NORMS
+
+
 def recipe_launches(network_def, img_size: int, masked: bool):
     """Launches per train step and per eval (or scoring) forward of a recipe's
     net, counted from its network_def: K1/K2 on each attention block that
     takes the kernel (N >= 8); K3/K4 on each layer norm (``dense_lns``),
-    masked where ``masked`` (a supernet), else in their dense mode."""
+    masked where ``masked`` (a supernet), else in their dense mode; B1/B2 on
+    a conv stem's norms (``stem_norms``)."""
     attention = kernel_attention_blocks(network_def, img_size)
-    lns = dense_lns(network_def)
+    lns, norms = dense_lns(network_def), stem_norms(network_def)
     fwd, bwd = (("masked_layer_norm_fwd", "masked_layer_norm_bwd") if masked
                 else ("layer_norm_fwd", "layer_norm_bwd"))
-    return (per_pass(attention_qkv_fwd=attention, attention_qkv_bwd=attention,
-                     **{fwd: lns, bwd: lns}),
-            per_pass(attention_qkv_fwd=attention, **{fwd: lns}))
+    return (with_stem(per_pass(attention_qkv_fwd=attention, attention_qkv_bwd=attention,
+                               **{fwd: lns, bwd: lns}), norms, True),
+            with_stem(per_pass(attention_qkv_fwd=attention, **{fwd: lns}), norms, False))
 
 
 def net_stages(network_def, img_size: int, patch_size: int = 14) -> list:
@@ -3079,7 +3378,8 @@ def swin_phase(reps: int) -> dict:
     seconds = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     per = {"window_attention_fwd": 24, "window_attention_bwd": 24,
-           "layer_norm_fwd": 53, "layer_norm_bwd": 53}
+           "layer_norm_fwd": 53, "layer_norm_bwd": 53, "batch_norm_stats": 0,
+           "batch_norm_apply": 0, "batch_norm_bwd": 0}
     check_launches(launches, per, STEPS, "SwinV2-B steps")
     return {"entries": entries, "imgs_per_s": STEPS * 256 / seconds,
             "step_ms": 1e3 * seconds / STEPS, "launches": launches, "per_step": per,
@@ -3089,8 +3389,9 @@ def swin_phase(reps: int) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
-    parser.add_argument("--phase", choices=("all", "swin"), default="all",
-                        help="every phase, or only the SwinV2 phase (after the build)")
+    parser.add_argument("--phase", choices=("all", "swin", "stem"), default="all",
+                        help="every phase, or only the SwinV2 or the conv stem's batch norm "
+                             "phase (after the build)")
     parser.add_argument("--dist-worker", nargs=4, default=None,
                         metavar=("RANK", "WORLD", "STORE", "OUT"),
                         help="run one rank of the dist phase (the script starts these)")
@@ -3105,7 +3406,7 @@ def main(argv=None) -> int:
         rank, world, store, out = args.dist_worker
         return dist_worker(int(rank), int(world), store, out)
     from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
-    from vit_search_torch.ops import window_attention  # noqa: F401
+    from vit_search_torch.ops import batch_norm, window_attention  # noqa: F401
     from vit_search_torch.tools import attn_lab  # noqa: F401
 
     if sorted(KERNEL_NAMES) != sorted(k.name for k in kernels.KERNELS):
@@ -3142,6 +3443,18 @@ def main(argv=None) -> int:
                 json.dump(report, f, indent=1)
         return 0
 
+    if args.phase == "stem":
+        report["stem"] = st = stem_phase(REPS)
+        print(f"stem: batch norm launches a train pass "
+              f"{json.dumps(st['module']['train_launches'])}, an eval forward "
+              f"{json.dumps(st['module']['eval_launches'])} on {card}", flush=True)
+        print(json.dumps({"kernels": st["entries"]}), flush=True)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke_stem.json"), "w") as f:
+                json.dump(report, f, indent=1)
+        return 0
+
     # K2's routes at the recipes' shapes by kernel name, in the process's
     # first profiler session
     report["recipe_k2_routes"] = k2_routes = recipe_k2_routes()
@@ -3172,6 +3485,8 @@ def main(argv=None) -> int:
                                     "finetune")
     log(f"K3/K4's dense mode agrees with the plain dense layer norm at ViT-ResNAS-Medium's "
         f"stage shapes, B = {MEDIUM_BATCH} at 224 px and B = {MEDIUM_392_BATCH} at 392 px")
+    report["stem"] = st = stem_phase(REPS)
+    entries += st["entries"]
     for stage in range(len(STAGES)):
         entries += (check_attention(stage, REPS, DIST_BATCH, "dist", backward=True)
                     + check_masked_ln(stage, REPS, DIST_BATCH, "dist", backward=True))
@@ -3365,7 +3680,7 @@ def main(argv=None) -> int:
             "finetune": (ft, PER_FINETUNE_STEP),
             # the Medium net's layer norms: the finetune phase trains it
             "medium": (ft, PER_FINETUNE_STEP),
-            "distill": (ds, PER_DISTILL_STEP),
+            "distill": (ds, ds["per_step"]),
             "ops": (ops, PER_OPS_PASS),
             "shapes": (shapes, PER_SHAPES_CALL),
             "lab": (lab, PER_LAB_SHAPE),

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from vit_search_torch.ops import attention as A
+from vit_search_torch.ops import batch_norm as BN
 from vit_search_torch.ops import kernels
 from vit_search_torch.ops import masked_layer_norm as M
 from vit_search_torch.ops import stats as S
@@ -1285,3 +1286,192 @@ def test_cli_two_steps_on_the_card_match_the_cpu(cuda, bf16, tmp_path, monkeypat
             for k, v in c0[part].items():
                 chip_smoke.compare(f"{part} {k}", c1[part][k].cpu(), v, (1e-4, 1e-4),
                                    floor=1e-6)
+
+
+# B1/B2, the conv stem's batch norm: the stem's shapes (B 64, 24 channels at
+# 224 and 392 px, half resolution), then ragged ones (3 channels, 7 x 7
+# planes, the teacher's 2048 channels without the ReLU)
+BN_SHAPES = [((64, 24, 112, 112), torch.bfloat16, True), ((64, 24, 196, 196), torch.bfloat16, True),
+             ((8, 3, 20, 20), torch.bfloat16, True), ((16, 24, 7, 7), torch.bfloat16, True),
+             ((4, 2048, 7, 7), torch.bfloat16, False), ((4, 2048, 7, 7), torch.float32, False)]
+BN_IDS = ["stem224", "stem392", "c3", "hw49", "c2048_bf16", "c2048_f32"]
+
+
+def _bn_inputs(cuda, shape, dtype, layout, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed + shape[1])
+    c = shape[1]
+    x = (torch.randn(*shape, device=cuda, generator=gen) * 1.5 + 0.3).to(dtype)
+    g = torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+    if layout == "channels_last":
+        x, g = (t.contiguous(memory_format=torch.channels_last) for t in (x, g))
+    params = [torch.randn(c, device=cuda, generator=gen) * 0.5 + 1.0,
+              torch.randn(c, device=cuda, generator=gen) * 0.5,
+              torch.randn(c, device=cuda, generator=gen) * 0.1,
+              torch.rand(c, device=cuda, generator=gen) + 0.5]
+    return x, g, params
+
+
+def _bn_run(fn, x, g, params, train, relu):
+    """``fn``'s output, running statistics and the gradients of x, w, b."""
+    w, b, rm, rv = (t.clone() for t in params)
+    w.requires_grad_()
+    b.requires_grad_()
+    leaf = x.clone().requires_grad_()
+    y = fn(leaf, w, b, rm, rv, train, 0.9, 1e-5, relu)
+    grads = torch.autograd.grad(y, (leaf, w, b), g)
+    return y, rm, rv, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,relu", BN_SHAPES, ids=BN_IDS)
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_batch_norm_kernels_match_the_plain_path(cuda, shape, dtype, relu, layout, train):
+    """B1/B2 against the float32 PyTorch ops (and ``F.relu``) on the same
+    card: y and dx within bf16 tolerance (f32: 1e-4), the running
+    statistics within 1e-5, dw and db within 1e-3 (sums in another order).
+    The reference's ReLU is its own; dx is not compared where its float32
+    pre-activation lies in ``chip_smoke.relu_kink``'s band, within a few ulps
+    of 0, which may hold at most ``chip_smoke.KINK_SHARE`` of the elements."""
+    import chip_smoke
+
+    x, g, params = _bn_inputs(cuda, shape, dtype, layout)
+    before = (BN.BN_STATS.launches, BN.BN_APPLY.launches, BN.BN_BWD.launches)
+    y, rm, rv, (dx, dw, db) = _bn_run(BN.batch_norm, x, g, params, train, relu)
+    torch.cuda.synchronize()
+    assert (BN.BN_STATS.launches - before[0], BN.BN_APPLY.launches - before[1],
+            BN.BN_BWD.launches - before[2]) == (int(train), 1, 1)
+    assert y.dtype == dtype and y.stride() == x.stride() and dx.stride() == x.stride()
+    ry, rrm, rrv, (rdx, rdw, rdb) = _bn_run(BN.batch_norm_plain, x, g, params, train, relu)
+    if relu:
+        with torch.no_grad():
+            z = BN.batch_norm_plain(x.float(), params[0], params[1], params[2].clone(),
+                                    params[3].clone(), train, 0.9, 1e-5, False)
+        dx = torch.where(chip_smoke.relu_kink("stem norm", z), rdx, dx)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _close(y, ry, tol)
+    _close(rm, rrm, 1e-5)
+    _close(rv, rrv, 1e-5)
+    _close(dx, rdx, tol)
+    _close(dw, rdw, 1e-3)
+    _close(db, rdb, 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_batch_norm_backward_repeats_its_bits(cuda, layout):
+    """No atomics: two forward and backward calls give the same bits."""
+    x, g, params = _bn_inputs(cuda, (64, 24, 112, 112), torch.bfloat16, layout, seed=5)
+    first = _bn_run(BN.batch_norm, x, g, params, True, True)
+    second = _bn_run(BN.batch_norm, x, g, params, True, True)
+    for a, b in zip([*first[:3], *first[3]], [*second[:3], *second[3]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_batch_norm_takes_a_gradient_in_another_layout(cuda):
+    """dy stored otherwise than x is read in x's layout."""
+    x, g, params = _bn_inputs(cuda, (8, 24, 28, 28), torch.bfloat16, "channels_last")
+    want = _bn_run(BN.batch_norm, x, g, params, True, True)[3]
+    got = _bn_run(BN.batch_norm, x, g.contiguous(), params, True, True)[3]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    lambda x: x[:, :, :, ::2],
+    lambda x: x.float().double(),
+    lambda x: x[0],
+], ids=["strided", "float64", "3d"])
+def test_batch_norm_raises_on_what_the_kernels_refuse(cuda, make):
+    x, _, params = _bn_inputs(cuda, (4, 8, 6, 6), torch.bfloat16, "nchw")
+    with pytest.raises((ValueError, TypeError)):
+        BN.batch_norm(make(x), *params, True, 0.9, 1e-5, True)
+
+
+@pytest.mark.gpu
+def test_the_conv_stem_launches_three_of_each_and_saves_no_float32_activation(cuda):
+    """A stem train step: 3 statistics, 3 normalize and 3 backward launches;
+    no float32 tensor larger than a channel vector is saved for the
+    backward. An eval forward: 3 normalize launches alone."""
+    from vit_search_torch.models.patch_embed import PatchConvEmbed
+
+    stem = PatchConvEmbed(224, 14, 240, 24, torch.bfloat16,
+                          torch.Generator().manual_seed(0)).to(cuda)
+    images = torch.randint(0, 256, (16, 224, 224, 3), device=cuda).float()
+    saved = []
+
+    def pack(t):
+        saved.append((t.dtype, t.numel()))
+        return t
+
+    kernels.reset_launches()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = stem(images)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (BN.BN_STATS.launches, BN.BN_APPLY.launches, BN.BN_BWD.launches) == (3, 3, 3)
+    activation = 16 * 24 * 112 * 112
+    big = [n for dtype, n in saved if dtype == torch.float32 and n >= activation]
+    assert big == [], big
+    kernels.reset_launches()
+    with torch.no_grad():
+        stem.eval()(images)
+    assert (BN.BN_STATS.launches, BN.BN_APPLY.launches, BN.BN_BWD.launches) == (0, 3, 0)
+
+
+@pytest.mark.gpu
+def test_batch_norm_in_a_group_of_one_gives_the_bits_without_one(cuda, tmp_path):
+    """Train mode in a one-process gloo group (the sums all-reduced between
+    the passes, the statistics finished by their own launch): the bits of no
+    group."""
+    from vit_search_torch import parallel
+
+    x, g, params = _bn_inputs(cuda, (16, 24, 56, 56), torch.bfloat16, "channels_last")
+    alone = _bn_run(BN.batch_norm, x, g, params, True, True)
+    parallel.init_distributed(f"file://{tmp_path / 'store'}", 1, 0, local_rank=0,
+                              device="cuda", backend="gloo")
+    try:
+        grouped = _bn_run(BN.batch_norm, x, g, params, True, True)
+    finally:
+        parallel.shutdown()
+    for a, b in zip([*alone[:3], *alone[3]], [*grouped[:3], *grouped[3]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train,calls", [(True, 1), (False, 0)], ids=["train", "eval"])
+def test_batch_norm_backward_all_reduces_only_batch_statistics(cuda, monkeypatch, train, calls):
+    """B2 sums over the processes only in train mode: in eval mode the
+    running statistics do not depend on x, and dx never reads the sums."""
+    x, g, params = _bn_inputs(cuda, (8, 24, 28, 28), torch.bfloat16, "channels_last")
+    seen = []
+    real = BN.parallel.sum_over_processes
+
+    def counted(t):
+        seen.append(tuple(t.shape))
+        return real(t)
+
+    monkeypatch.setattr(BN.parallel, "sum_over_processes", counted)
+    _bn_run(BN.batch_norm, x, g, params, train, True)
+    assert seen == [(2, 24)] * calls
+
+
+@pytest.mark.gpu
+def test_batch_norm_eval_backward_keeps_the_statistics_of_its_forward(cuda):
+    """A train-mode forward between an eval-mode forward and its backward
+    moves the running statistics in place; the backward still normalizes by
+    those its forward read."""
+    x, g, params = _bn_inputs(cuda, (8, 24, 28, 28), torch.bfloat16, "nchw")
+    want = _bn_run(BN.batch_norm, x, g, params, False, True)[3]
+    w, b, rm, rv = (t.clone() for t in params)
+    w.requires_grad_()
+    b.requires_grad_()
+    leaf = x.clone().requires_grad_()
+    y = BN.batch_norm(leaf, w, b, rm, rv, False, 0.9, 1e-5, True)
+    BN.batch_norm(x * 3 + 1, w.detach(), b.detach(), rm, rv, True, 0.9, 1e-5, True)
+    assert not torch.equal(rm, params[2])
+    got = torch.autograd.grad(y, (leaf, w, b), g)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)

@@ -158,6 +158,29 @@ def test_recipe_launches_per_step_and_per_forward(script, launches):
     assert set(step) == set(forward) == set(chip_smoke.KERNEL_NAMES)
 
 
+@pytest.mark.parametrize("script,norms", [
+    ("super_net/tiny.sh", 3),
+    ("super_net/no_distill/tiny.sh", 0),
+    ("super_net/no_distill/small_flexible-conv-patch.sh", 3),
+    ("evolutionary_search/tiny.sh", 3),
+    ("reference_net/tiny.sh", 3),
+    ("finetune/medium_img-size@392.sh", 3),
+])
+def test_recipe_launches_count_the_conv_stem_norms(script, norms):
+    """B1's statistics, normalize and B2 once per conv-stem norm a train
+    step, the normalize alone an eval or scoring forward; none in a net with
+    a linear stem."""
+    cli, argv = chip_smoke.recipe_argv(script, DATA, 3)
+    args = _parser(cli).parse_args(argv)
+    masked = cli == "evo_search" or args.model.endswith("_supernet")
+    net = parse_network_def(args.network_def)
+    step, forward = chip_smoke.recipe_launches(net, args.input_size, masked)
+    names = ("batch_norm_stats", "batch_norm_apply", "batch_norm_bwd")
+    assert tuple(step[k] for k in names) == (norms, norms, norms)
+    assert tuple(forward[k] for k in names) == (0, norms, 0)
+    assert chip_smoke.stem_norms(net) == norms
+
+
 @pytest.mark.parametrize("script,stages", [
     ("super_net/small.sh", [(257, 320, 8, 32), (65, 640, 16, 48), (17, 1280, 16, 64)]),
     ("super_net/no_distill/tiny.sh", [(257, 256, 4, 64), (65, 512, 8, 64), (17, 1024, 12, 64)]),

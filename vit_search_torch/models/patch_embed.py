@@ -9,9 +9,9 @@ Port of vit_search_tpu/models/patch_embed.py. Batch norm follows flax:
 momentum 0.9 on the running statistics, a biased batch variance
 ``E[x^2] - E[x]^2`` computed in float32, eps 1e-5. In a process group the
 train-mode statistics are the global batch's, as flax's under a
-mesh-sharded jit: the per-channel sums are all-reduced inside autograd
-(``parallel.sum_over_processes``), and the running statistics agree on
-every process.
+mesh-sharded jit: the per-channel sums are all-reduced, and the running
+statistics agree on every process. The norm, and in ``ConvBnAct`` the ReLU
+after it, is ``ops.batch_norm`` (hand-written kernels on the card).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import parallel
+from ..ops.batch_norm import batch_norm
 from .layers import lecun_normal_, trunc_normal_
 
 
@@ -54,22 +54,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            sums = parallel.sum_over_processes(torch.stack(
-                [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
-            n = xf.numel() // xf.shape[1] * parallel.process_count()
-            mean = sums[0] / n
-            var = (sums[1] / n - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
-        return y.to(x.dtype)
+        return self.normalize(x, relu=False)
+
+    def normalize(self, x: torch.Tensor, relu: bool) -> torch.Tensor:
+        """The norm of ``x``, then the ReLU where ``relu``."""
+        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                          self.training, self.momentum, self.eps, relu)
 
 
 class ConvBnAct(nn.Module):
@@ -81,7 +71,7 @@ class ConvBnAct(nn.Module):
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(conv2d(x, self.conv, self.dtype)))
+        return self.bn.normalize(conv2d(x, self.conv, self.dtype), relu=True)
 
 
 class PatchEmbed(nn.Module):
