@@ -1,214 +1,71 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card (an H100).
+"""Time the port's hand-written kernels on one CUDA card (an H100), and run
+the 24 published recipes through the port's CLIs there.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--phase all|swin|stem]
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Two jobs, each fatal on failure (non-zero exit, no result line):
 
-1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the hand-written kernels from ``vit_search_torch/csrc`` (nvcc, sm_90a);
-3. every kernel against its plain PyTorch version at the three stage shapes
-   of the ViT-ResNAS-Tiny supernet, at the batch each main path gives it
-   (512 for the train step and the op-level API; 2048 for a scoring
-   forward: K1, K3 and K5; 512 for the attention lab's K10-K12), with
-   stated tolerances, and timed with CUDA events beside its bound and
-   PyTorch's own call: ``ms`` is the device time per launch (launches
-   captured in a CUDA graph, inputs rotated past the L2 cache), ``call_ms``
-   the time per call of the wrapper, host overhead included. The inputs are
-   bf16, so K1/K2 and K6-K9 run their tensor-core bodies, which round p
-   and ds to bf16 as MMA operands where the plain versions keep them f32:
-   they agree within ``BF16_TOL``, not bit for bit. The lab's K10 and K11
-   run the same bodies with p and ds as bf16 hi/lo pairs: their mean error
-   against the f32 function must be below K1's and K2's on the card, and
-   each lab entry carries ``err_vs_base``, its error against K1's or K2's
-   plain function. K3/K4's yardstick is ``F.layer_norm`` (their function
-   with a full mask); K3's and K4's registers and spills from the ptxas
-   report go to stderr; at the very end, after the lab, K4's two launches
-   (the rows, then the fold of the per-block partials) are timed apart by
-   ``torch.profiler``;
-   Beside the stage shapes, the attention kernels at shapes past the
-   supernet's: the 392 px finetune's stage 1 (N = 785, D = 32, where the
-   bf16 backward takes the split route), K1/K2 in bf16 and float32 and
-   K6-K9 in bf16, and K1/K2 at a head dim of 24; then K1/K2 at the searched
-   Tiny net's stages (widest heads, B = 512), at the 392 px finetune's
-   three stages (B = 64) and at DeiT-S's shape (B = 512, N = 198, 6 heads
-   of 64); and K3/K4's dense mode (a net without masks) at
-   ViT-ResNAS-Medium's stage shapes at 224 px (B = 1024) and at 392 px
-   (B = 256) against the plain dense layer norm in float32, timed beside it
-   and ``F.layer_norm``; then the conv stem's batch norm with its ReLU (B1,
-   and B2 in train mode, ``csrc/batch_norm.cu``) at the cells' stem shapes
-   (``STEM_CASES``: B 1024 at 224 px and B 256 at 392 px in train mode, B
-   2048 at 224 px in eval mode; 24 channels at half resolution, in the
-   layout the stem's convolution returns) against the float32 PyTorch ops
-   the port ran before, timed beside its bound (three passes over the
-   activation forward, five backward), those ops and ``F.batch_norm`` with
-   ``F.relu`` (cuDNN), and the whole ``PatchConvEmbed`` through its module:
-   3 / 3 / 3 launches of ``batch_norm_stats`` / ``_apply`` / ``_bwd`` a
-   train pass, 0 / 3 / 0 an eval forward, each norm's input and gradient
-   layout, no float32 activation saved for the backward (``--phase stem``
-   runs this alone after the build);
-4. a small conv-stem supernet: the port's forward and one train step on the
-   card (kernels) against the same on the CPU (plain versions), in float32
-   (the attention kernels' CUDA-core f32 bodies), once on each masked-LN
-   route (``fused``: K3/K4; ``stats``: K5), then in bfloat16 (the
-   tensor-core bodies) on the fused route: loss, gradient norm and logits
-   within ``REF_NET_BF16_TOL``; then the same net trained densely, as a
-   searched net, with random erasing, gradient clipping and the EMA on, the
-   draws made once on the host for both devices, in float32 and bfloat16:
-   loss, gradient norm, logits and the EMA within the same tolerances; then
-   the same net with a distill token, one step with timm Mixup/CutMix
-   (``elem`` mode), dropout 0.1 with injected keeps and hard distillation
-   from a narrow RegNetY teacher behind a shrinking resize, in float32 and
-   bfloat16 (the teacher in float32: a bf16 teacher's hard labels flip on
-   near-ties); the teacher's logits card vs CPU in float32 and, apart, in
-   bfloat16;
-5. the op-level API at each stage shape, forward and backward through
-   autograd: ``fused_attention_packed`` and ``fused_attention`` (K6/K7),
-   ``fused_attention_qkv_t`` (K8/K9); outputs of the expected shapes, the
-   ``(B, N, H, D)`` entry point equal to the ``(B, N, W)`` one, and one
-   launch of each kernel per call (the plain comparisons are phase 3's);
-   then (``shapes``) ``fused_attention_qkv`` (K1/K2) at the 392 px
-   finetune's three stage shapes in both dtypes and at a head dim of 24,
-   and the other two layouts' entry points (K6-K9) at its stage 1 in bf16;
-6. train: the full-width ``SUPERNET_SR_TINY_MH`` supernet at 224px, batch
-   512, 32 examples per architecture, token mixup, drop_path 0.2, tanh GELU,
-   bf16 compute, AdamW; every loss finite, and each kernel's launch count
-   moves by exactly its per-step count; one more step under
-   ``torch.profiler``, its device time by kernel class;
-   searched (``searched_net/tiny.sh``): the dense ViT-ResNAS-Tiny at 224 px,
-   batch 512, token mixup, drop_path 0.2, random erasing 0.25 (pixel), EMA
-   0.99996, AdamW, bf16: every loss finite, the EMA finite and not the
-   parameters, K1/K2 16 launches per step, K3/K4's dense mode 35 (a dense
-   net's layer norms: 2 per block, 1 per SR block, 1 final) and the masked
-   K3/K4 and K5 none;
-   finetune (``finetune/medium_img-size@392.sh``): ViT-ResNAS-Medium trains
-   two steps at 224 px with the EMA, is saved by ``CheckpointManager`` and
-   read back by ``restore_raw``; ``load_finetune`` resizes the EMA's
-   position tables on the card into the 392 px net (within 1e-5 of the
-   same surgery on the CPU, the cls rows bit for bit), which trains at
-   batch 64, patch_len 7, drop_path 0.75, lr 5e-6, weight decay 1e-8,
-   erasing and EMA on: K1/K2 20 launches per step, and the profiled step's
-   backward launches by name show K2's split route at stage 1 (N = 785);
-   mixup (``super_net/no_distill/tiny_mh.sh``): the script's own network_def
-   (linear stem) as ``flexible_vit_sr_patch14_224_supernet``, space
-   ``sr_tiny_mh``, batch 512, 32 examples per architecture, timm
-   Mixup/CutMix (0.8 / 1.0, switch 0.5, batch mode), smoothing 0.1,
-   drop_path 0.2, tanh GELU, bf16, no EMA: K1/K2 18 and K3/K4 39 launches
-   per step;
-   distill (the DeiT-S distillation recipe of the facebookresearch/deit
-   README): ``deit_small_distill_patch16_224`` at batch 512 with hard
-   distillation (alpha 0.5) from ``regnety_160_upsample`` (RegNetY-16GF,
-   random weights from seed 0, bf16, eval mode), Mixup/CutMix as above,
-   smoothing 0.1, drop_path 0.1, EMA 0.99996: K1/K2 12 launches per step at
-   (198, 6, 64), K3/K4's dense mode 25, the masked K3/K4 and K5 none; the
-   teacher's forward timed apart by CUDA events, its share of the step
-   reported;
-   loader (``super_net/tiny.sh``'s input pipeline): a synthetic image folder
-   made by the port's ``make_synthfolder`` in a temporary directory (1000
-   classes, 4 images per class at 256 px, 1 per class held out as the
-   sub-val by ``build_subsets``); the port's ``DataLoader`` alone on the
-   process backend with one worker per host core (``TrainTransform`` at
-   224 px, RandAugment ``rand-m9-mstd0.5-inc1``, batch 512), timed over an
-   epoch; the train phase's step fed from it through the device feed
-   (``data.prefetch_to_device``), K1/K2 18 and K3/K4 39 launches per step;
-   one step, its batch's wait included, under the profiler: the device's
-   idle share; the host's ``os.cpu_count()`` and scheduler affinity;
-   cli: ``vit_search_torch.cli.train.main`` in-process with
-   ``super_net/tiny.sh``'s own arguments read from the script, only the data
-   path, batch 512, 2 epochs of 3 steps, the output directory and the loader
-   workers set here: epoch 0, a SIGTERM once its log line is written (the
-   run checkpoints in epoch 1 and returns), ``--resume auto`` for the rest
-   of epoch 1, then ``--eval`` from the last checkpoint: every loss finite,
-   the preemption checkpoint's metadata, the resumed run ending at epoch 1,
-   acc1 in [0, 100], and K1/K2 18 and K3/K4 39 launches per train step plus
-   K1 18 and K3 39 per eval forward;
-7. search, once on each masked-LN route (``stats``: K1 and K5; ``fused``,
-   the default: K1 and K3): the same supernet scores an evolutionary
-   population (20 random candidates, then one generation of 8 mutations and
-   8 crossovers) under the published Tiny budget of 1.7944 GMACs, 8
-   candidates per forward over three sub-val batches of 256 synthetic uint8
-   images (the last with 128 valid rows); every candidate in the MAC band,
-   every score in [0, 100], launches per forward exact, and one chunk's
-   logits within tolerance across the two routes; the proposals come from
-   the native (C++) generators (``evolver.backend == "native"``), whose
-   ``estimate_mac`` must equal the estimator on every candidate, and the
-   host seconds per generation of the native and the Python generators are
-   printed side by side (``native: ...``);
-   dist: two processes spawned from this script on the one card, joined over
-   gloo (NCCL refuses two ranks on one card), each with 256 rows of the
-   train phase's global batch of 512: two train steps (K1-K4 18/18/39/39
-   launches per rank-step) whose losses, grad norms and conv-stem running
-   statistics must be within ``DIST_TOL`` of the same two steps in one
-   process, both ranks bit for bit equal; the same steps under each planted
-   fault (``PLANTED_FAULTS``: the conv stem's batch statistics from a rank's
-   own rows, drop-path keeps drawn at a rank's shape) must be caught, by
-   the ranks' disagreement or a gap over ``DIST_TOL``; the fused search's
-   first generation scored on each rank's share of the sub-val batches
-   (K1/K3 18/39 per forward), scores equal to the search phase's; the
-   batch's gather and the gradients' all-reduce timed alone; then ``python -m vit_search_torch.cli.launch``
-   under a torchrun environment of one process on NCCL, one epoch of two
-   steps on the cli phase's folder; its imgs/s is that of two processes
-   time-sharing one card, not a multi-card figure;
-   study: ``python -m vit_search_torch.tools.accuracy_study`` in a
-   subprocess beside the recipes phase below, as users run it, at a smoke
-   scale (``STUDY_FLAGS``: 10 classes, 112 px, batch 128, 2 supernet
-   epochs, a search of 8 + 4 candidates, two 2-epoch retrains, a 1-epoch finetune at 168 px): the
-   port's data tools, ``cli.train``, ``cli.evo_search`` on the checkpoint
-   ``cli.train`` wrote, ``cli.train --finetune`` and ``--eval`` on the
-   card; it must exit 0 with every summary key, both nets within the
-   scaled budget (448.6 M MACs), finite losses and top-1 in [0, 100], and
-   render its five sections through the port's ``render_results``; each
-   stage's seconds (``tools.study_timing``); then ``tools.gelu_delta`` in
-   this process on the retrained winner at 112 px: finite numbers, K1
-   launched exactly twice per attention block of the winner at N >= 8
-   (stage 3 at 112 px, N = 5, runs the plain version) and no other
-   kernel; ``--out`` also gets ``study_summary.json`` and
-   ``study_RESULTS.md``;
-   recipes: the 24 published scripts of ``scripts/vit-sr-nas`` through
+1. The kernel table. After the card's name and power limit (``nvidia-smi``)
+   and the build (``nvcc``, sm_90a; K3/K4's registers and spills from the
+   ptxas report, on stderr), each case of ``cases()`` compares its kernels
+   with their plain PyTorch versions at the case's shape (``compare``, within
+   the tolerance the row states: a timed kernel is a correct one) and times
+   them. ``--phase stem`` and ``--phase swin`` run only those groups of
+   cases. Each row of the ``{"kernels": [...]}`` line has the columns:
+
+   - ``name``, ``source``, ``replaces``: the kernel's record, its source file
+     and the TPU kernel it ports;
+   - ``stage``, ``batch``, ``shape``: the case's label and shape;
+   - ``net``, ``launches``: the net whose pass gives the shape (a script of
+     ``RECIPE_DIR``, DeiT-S or SwinV2-B; none for the op-level API's K6-K9
+     and the lab's K10-K12, which no model launches) and, for a script, the
+     kernel's launches as the recipes phase of this process counted them in
+     that script's run, with the run's train steps and eval or scoring
+     forwards (``{"count", "steps", "forwards"}``, held there to
+     ``recipe_launches``; K5 counts 0, since no script takes
+     ``ln_route="stats"``); null where nothing in the process counted them:
+     DeiT-S, SwinV2-B, no net, and every ``--phase stem`` or ``swin`` run;
+   - ``max_abs_err``, ``tolerance``: against the plain version;
+   - ``ms``: device time per launch (launches captured in a CUDA graph,
+     inputs rotated past the L2 cache); ``call_ms``: per call of the
+     wrapper, host overhead included;
+   - ``bound_ms``, ``bound_by``: max(bytes / HBM bandwidth, operations /
+     peak rate) from the H100's data sheet;
+   - ``plain_ms``: the plain version; ``library_ms``: PyTorch's own call for
+     the same work (``library_call``: SDPA, ``F.layer_norm``, cuDNN's batch
+     norm), a yardstick only.
+
+   The inputs are bf16, so K1/K2 and K6-K9 run their tensor-core bodies,
+   which round p and ds to bf16 as MMA operands where the plain versions
+   keep them f32: they agree within ``BF16_TOL``, not bit for bit. The lab's
+   K10 and K11 keep p and ds as bf16 hi/lo pairs: their mean error against
+   the f32 function must be below K1's and K2's, and each lab row carries
+   ``err_vs_base``, its error against K1's or K2's plain function. Last of
+   all, K4's two launches (the rows, then the fold of the per-block
+   partials) are timed apart by ``torch.profiler``.
+2. The recipes: the 24 published scripts of ``scripts/vit-sr-nas`` through
    ``cli.train.main`` and ``cli.evo_search.main`` in this process, each with
-   its own arguments (``recipe_argv``; set here: the data, a view of the cli
-   phase's folder whose train and val are its sub-train and sub-val; one
-   epoch of 2 steps; the loader workers; each search's population, 8 + 8
-   candidates, and its MODEL_PATH, the checkpoint its supernet's one-epoch
-   run wrote), at each script's own batch, with the working directory at a
-   temporary root so that every relative ``models/...`` path resolves as the
-   scripts write it: the seven supernets, the six searches on them, the
-   reference, searched and Medium nets, the 280 and 392 px finetunes from
-   the searched Medium net's ``best_ema`` and the eval of the searched Small
-   net's ``best``; every loss finite, every acc1 in [0, 100], every
-   candidate in its MAC band, the checkpoints later scripts read present,
-   K1-K4 launches exact per train step and per eval or scoring forward,
-   peak memory under the card's, one line per script on stderr; then K1/K2
-   (and K3/K4 on the supernets) at every stage of the Small supernet, the
-   ``sr_tiny_666`` supernet, the reference net and the 280 px finetune at
-   their scripts' batches against the plain versions, K2's route by kernel
-   name (profiled right after the build, the process's first profiler
-   session), and one profiled step of the Small supernet from
-   device batches;
-8. lab: the attention lab (``vit_search_torch.tools.attn_lab``) at its
-   full-width shapes, ``main()`` (K11 against K2, K10 against K1, then each
-   timed) and ``main_split()`` (K12a + K12b against K2, then timed), its
-   lines on stderr; its errors within tolerance, every kernel launched
-   exactly as often as the run calls it, and the lab's kernels against their
-   plain versions at the lab's shapes;
-9. swin (after the op-level and extra-shape paths; ``--phase swin`` runs
-   it alone after the build): the windowed cosine attention
-   (``csrc/window_attention.cu``) at SwinV2-B's six stage shapes at 256
-   images, out and the three gradients against the plain function with q'
-   and k' rounded as the kernels round them (``BF16_TOL``), each direction
-   timed beside its bound, the plain version and SDPA with a float
-   ``attn_mask``; then SwinV2-B's train step at 256 px and 256 images,
-   Mixup/CutMix and erasing, 24 launches of each window-attention record
-   and 53 of each dense layer norm a step, its rate and peak;
-10. a ``{"kernels": [...]}`` line, each entry with the path whose launches it
-   reports (``train``; ``searched``; ``finetune``; ``distill``; ``ops``;
-   ``shapes``; ``lab``; ``search``, the stats route; ``search_fused``;
-   ``dist``, K1-K4 at a rank's 256 rows, launches of rank 0's train steps
-   and scoring forwards; ``recipes``, the launches of the script whose net
-   gives the shape, per train step; ``swin``, a SwinV2-B step) and its launches
-   per pass of that path (a train step, one call of each op-level entry
-   point, one call at one of the extra shapes, one shape of the lab, or a
-   scoring forward), then the last line ``{"ok": true, "device": {...}}``.
+   its own arguments (``recipe_argv``: only the data, a view of a synthetic
+   1000-class folder made beside the kernel table whose train and val are
+   its sub-train and sub-val; one epoch of 2 steps; the loader workers; each
+   search's population, 8 + 8 candidates, and its MODEL_PATH, the checkpoint
+   its supernet's one-epoch run wrote), at each script's own batch, with the
+   working directory at a temporary root so that every relative
+   ``models/...`` path resolves as the scripts write it: every loss finite,
+   every acc1 in [0, 100], every candidate in its MAC band, the checkpoints
+   later scripts read present, every kernel's launches exact per train step
+   and per eval or scoring forward (``recipe_launches``), peak memory under
+   the card's, one line per script on stderr. Then K1/K2 (and K3/K4 on the
+   supernets) at every stage of ``RECIPE_KERNEL_SCRIPTS``' nets at their
+   scripts' batches, as rows of the table with K2's route by kernel name
+   (profiled right after the build, the process's first profiler session),
+   and one profiled step of the Small supernet from device batches.
+
+The last line is ``{"ok": true, "device": {...}}``; ``--out`` gets the full
+report. The card's other checks are the gpu-marked tests (``python -m pytest
+--noconftest -m gpu tests/test_torch_gpu*.py``); end-to-end rates are the
+benchmark's (``python3 benchmark/run.py``).
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -218,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import json
 import math
 import os
@@ -229,19 +87,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-BATCH = 512
+BATCH = 512               # the table's train batch: the Tiny supernet script's 1024 halved
 EXAMPLE_PER_ARCH = 32
-STEPS, WARMUP = 5, 2      # timed and untimed train steps
+SEARCH_BATCH = 2048       # images per scoring forward: --arch-batch 8 x --val-bs 256
 REPS = 10                 # timed launches per kernel
-# (tokens N, embed C, heads H, head_dim D) of the three stages at 224px
-STAGES = ((257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64))
 # attention kernels (forward, backward) by layout
 ATTENTION_KERNELS = {"packed": ("attention_qkv_fwd", "attention_qkv_bwd"),
                      "separate": ("attention_fwd", "attention_bwd"),
                      "seq_major": ("attention_qkv_t_fwd", "attention_qkv_t_bwd")}
-# per-pass launches: 3 stages x 6 blocks of attention; masked LN twice per
-# block, once per SR block (2), once final
-ATTENTION, MASKED_LNS = 3 * 6, 3 * 6 * 2 + 2 + 1
 KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd",
                 "masked_layer_norm_bwd", "row_sum_sumsq", "attention_fwd", "attention_bwd",
                 "attention_qkv_t_fwd", "attention_qkv_t_bwd", "lab_fwd_t", "lab_bwd_t",
@@ -256,7 +109,7 @@ SWIN_STAGES = ((4096, 256, 4, 0, 64), (4096, 256, 4, 8, 64), (1024, 256, 8, 0, 3
 
 
 def per_pass(**counts):
-    """Launches of every kernel per pass of a path, 0 unless given."""
+    """Launches of every kernel per pass of a net, 0 unless given."""
     return {name: counts.get(name, 0) for name in KERNEL_NAMES}
 
 
@@ -272,165 +125,19 @@ def with_stem(per: dict, norms: int, train: bool) -> dict:
                 batch_norm_bwd=norms if train else 0)
 
 
-# a train step: K1/K2 on every attention layer, K3/K4 on every masked LN,
-# B1/B2 on the conv stem's norms
-PER_STEP = with_stem(per_pass(attention_qkv_fwd=ATTENTION, attention_qkv_bwd=ATTENTION,
-                              masked_layer_norm_fwd=MASKED_LNS,
-                              masked_layer_norm_bwd=MASKED_LNS), STEM_NORMS, True)
-# a scoring forward: no backward; the masked LNs take K3 on ln_route="fused"
-# (the default) and K5 on ln_route="stats"
-PER_FORWARD = {route: with_stem(per_pass(attention_qkv_fwd=ATTENTION,
-                                         **{("masked_layer_norm_fwd" if route == "fused"
-                                             else "row_sum_sumsq"): MASKED_LNS}),
-                                STEM_NORMS, False)
-               for route in ("fused", "stats")}
-# a pass of the op-level API: one call of each entry point with its backward
-# (fused_attention_packed and fused_attention: K6/K7; fused_attention_qkv_t:
-# K8/K9)
-PER_OPS_PASS = per_pass(attention_fwd=2, attention_bwd=2, attention_qkv_t_fwd=1,
-                        attention_qkv_t_bwd=1)
-# (label, batch, N, heads, head_dim) past the supernet's shapes: the 392 px
-# finetune's stages (medium_img-size@392.sh's network_def, its widest heads)
-# and a head dim of 24
-FINETUNE_392 = (("392px stage 1", 64, 785, 8, 32), ("392px stage 2", 64, 197, 16, 48),
-                ("392px stage 3", 64, 50, 16, 64))
-HEAD_DIM_24 = ("head dim 24", BATCH, 257, 8, 24)
-# the calls of the `shapes` path, (shape, dtype, layout), each one forward and
-# backward through the layout's autograd entry point: the 392 px stages in
-# both dtypes packed (K1/K2), stage 1 in bf16 separate (K6/K7) and
-# sequence-major (K8/K9), head dim 24 packed
-EXTRA_CALLS = ([(shape, dtype, "packed") for shape in FINETUNE_392
-                for dtype in ("bfloat16", "float32")]
-               + [(FINETUNE_392[0], "bfloat16", layout) for layout in ("separate", "seq_major")]
-               + [(HEAD_DIM_24, "bfloat16", "packed")])
-# launches of each kernel per call that runs it
-PER_SHAPES_CALL = per_pass(**{name: 1 for names in ATTENTION_KERNELS.values() for name in names})
-# a shape of the attention lab, main() then main_split(): each variant is
-# called once to compare, once to warm up, then three times LAB_ITERS times;
-# K1/K2/K10/K11 are main()'s base and T, K2 is also main_split()'s base
-LAB_ITERS = 30
-LAB_CALLS = 2 + 3 * LAB_ITERS
-PER_LAB_SHAPE = per_pass(attention_qkv_fwd=LAB_CALLS, attention_qkv_bwd=2 * LAB_CALLS,
-                         lab_fwd_t=LAB_CALLS, lab_bwd_t=LAB_CALLS, lab_split_dq=LAB_CALLS,
-                         lab_split_dkv=LAB_CALLS)
-# the searched and finetune paths: searched_net/tiny.sh (ViT-ResNAS-Tiny,
-# dense, 16 attention layers) at the train phase's batch (the script's 1024
-# halved, as the supernet's), and finetune/medium_img-size@392.sh
-# (ViT-ResNAS-Medium, 20 attention layers) at 64 images (the script's 256 is
-# per host of four cards), both with random erasing and the EMA on
-SEARCHED_MODEL = "flexible_vit_sr_patch14_224_patch_output"
-FINETUNE_MODEL = "flexible_vit_sr_patch14_392_patch_output"
+# the scripts whose nets give the table's shapes (``recipe_stages``)
+TINY, TINY_SEARCH = "super_net/tiny.sh", "evolutionary_search/tiny.sh"
+SEARCHED, MEDIUM = "searched_net/tiny.sh", "searched_net/medium_mac@4.6G.sh"
+FINETUNE = "finetune/medium_img-size@392.sh"
+# the 392 px finetune's attention rows: its script's 256 images are per host
+# of four cards, 64 a card
 FINETUNE_BATCH = 64
-EMA_DECAY = 0.99996
-ERASING = {"erasing_prob": 0.25, "erasing_mode": "pixel"}
-# (their layer norms on K3/K4's dense mode: 2 x 16 + 2 + 1 and 2 x 20 + 2 +
-# 1, ``dense_lns``)
-PER_SEARCHED_STEP = with_stem(per_pass(attention_qkv_fwd=16, attention_qkv_bwd=16,
-                                       layer_norm_fwd=35, layer_norm_bwd=35), STEM_NORMS, True)
-PER_FINETUNE_STEP = with_stem(per_pass(attention_qkv_fwd=20, attention_qkv_bwd=20,
-                                       layer_norm_fwd=43, layer_norm_bwd=43), STEM_NORMS, True)
-# the mixup path: super_net/no_distill/tiny_mh.sh, which trains the supernet
-# with timm Mixup/CutMix (no --use-patch-mixup), its network_def read from
-# the script; the train step's K1-K4 launches (K1/K2 18, K3/K4 39) and, its
-# stem linear, no batch norm
-PER_MIXUP_STEP = with_stem(PER_STEP, 0, True)
-MIXUP_SCRIPT = "scripts/vit-sr-nas/super_net/no_distill/tiny_mh.sh"
-MIXUP_MODEL = "flexible_vit_sr_patch14_224_supernet"
-MIXUP = {"mixup_mode": "mixup", "mixup_alpha": 0.8, "cutmix_alpha": 1.0,
-         "mixup_switch_prob": 0.5, "mixup_prob": 1.0, "mixup_elem_mode": "batch"}
-# the distill path: the DeiT-S distillation recipe (facebookresearch/deit
-# README: deit_small_distilled_patch16_224 --distillation-type hard
-# --teacher-model regnety_160) at the batch the other paths take (DeiT's
-# global 1024 halved); 12 blocks of 6 heads of 64 at N = 196 + 2 tokens, 25
-# dense layer norms (no SR block); the teacher's batch norms in eval mode,
-# B1's normalize once each a step (counted from the teacher)
-DISTILL_MODEL = "deit_small_distill_patch16_224"
-TEACHER_MODEL = "regnety_160_upsample"
-PER_DISTILL_STEP = per_pass(attention_qkv_fwd=12, attention_qkv_bwd=12, layer_norm_fwd=25,
-                            layer_norm_bwd=25)
-DISTILL_SHAPES = (("DeiT-S", BATCH, 198, 6, 64),)
-# ViT-ResNAS-Medium's stages at 224 px, (N, C), at searched_net/medium_mac@4.6G.sh's
-# batch: the shapes of its dense layer norms (K3/K4's dense mode)
-MEDIUM_STAGES = ((257, 240), (65, 640), (17, 880))
-MEDIUM_BATCH = 1024
-# (N, C) of the 392 px finetune's three stages, at its script's batch
-MEDIUM_392_STAGES = ((785, 240), (197, 640), (50, 880))
-MEDIUM_392_BATCH = 256
-# B1/B2 at the cells' conv stem shapes: (label, batch, image px, train, the
-# path whose launches the entry reports): the train step at 224 px
-# (tiny_supernet.train, medium.train) and at 392 px (medium.finetune392), and
-# a scoring forward (tiny_supernet.search); 24 channels at half resolution
-STEM_CASES = (("train 224px", 1024, 224, True, "train"),
-              ("train 392px", 256, 392, True, "finetune"),
-              ("eval 224px", 2048, 224, False, "search_fused"))
-STEM_CHANNELS = 24
-# loader and cli: super_net/tiny.sh on a synthetic image folder of 1000
-# classes (the heads keep their published width), 4 train images per class
-# at 256 px, 1 per class held out as the sub-val
-SUPERNET_SCRIPT = "scripts/vit-sr-nas/super_net/tiny.sh"
-FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_HOLDOUT, FOLDER_SIZE = 1000, 4, 1, 256
-LOADER_AUGMENT = "rand-m9-mstd0.5-inc1"   # the CLI's --aa default, which tiny.sh keeps
-CLI_EPOCHS, CLI_STEPS = 2, 3
-# the small net's distill check: dropout rate, and the narrow teacher behind
-# a 112 -> 96 px resize
-REF_DROPOUT = 0.1
-REF_TEACHER = {"target_size": 96, "widths": (32, 64), "depths": (1, 2), "group_width": 16,
-               "stem_width": 16, "num_classes": 10}
-# (label, batch, N, heads, head_dim): the searched Tiny net's stages at their
-# widest heads; the finetune's are FINETUNE_392
-SEARCHED_SHAPES = (("searched stage 1", BATCH, 257, 4, 32),
-                   ("searched stage 2", BATCH, 65, 10, 48),
-                   ("searched stage 3", BATCH, 17, 10, 64))
-# search: --val-bs and --arch-batch of cli/evo_search.py, the Tiny budget of
-# scripts/vit-sr-nas/evolutionary_search/tiny.sh; population cut to 20 + 16
-VAL_BATCH, ARCH_BATCH, VAL_BATCHES, LAST_VALID = 256, 8, 3, 128
-SEARCH_BATCH = ARCH_BATCH * VAL_BATCH    # images per scoring forward
-SEARCH_MODEL = "flexible_vit_sr_patch14_224_patch_output_supernet"
-TINY_BUDGET = 1.7944e9
-POPULATION, PARENTS, MUTATIONS, MUTATE_PROB = 20, 8, 8, 0.3
-# the reference search (tiny.sh, evo_search.py defaults): 500 random, then 19
-# generations of 75 mutations + 75 crossovers, on 25 images x 1000 classes
-REFERENCE_SEARCH = {"first": 500, "generations": 19, "per_generation": 150,
-                    "sub_val_images": 25000}
-# dist: the train phase's step and the search phase's scoring in two processes
-# on the one card over gloo (NCCL refuses two ranks on one card), each rank
-# DIST_BATCH rows of the global BATCH; then cli.launch on NCCL alone
-DIST_PROCS, DIST_STEPS = 2, 2
-DIST_BATCH = BATCH // DIST_PROCS
-# two processes against one on the same card and data differ only in the
-# order of the sums (the gradients', the conv stem's batch statistics'):
-# relative limits on the losses, the grad norms and the conv stem's running
-# statistics (by norm), each near the geometric mean of the sound run's gap
-# and the smallest planted fault's (``PLANTED_FAULTS``, each of which must be
-# caught). On an H100 the sound run's gaps were 1.2e-5 / 3.6e-4 / 2.2e-6;
-# local drop-path keeps gave 1.1e-3 / 6.6e-3 / 8.3e-5; local batch
-# statistics 8.7e-5 / 5.3e-4 / 5.3e-2, and ranks that disagree
-DIST_TOL = {"loss": 1e-4, "grad_norm": 1.5e-3, "bn_stats": 1e-5}
-LAUNCH_STEPS = 2
-# study: the port's accuracy study (python -m vit_search_torch.tools.accuracy_study)
-# at a smoke scale: 10 classes of 64 train images (16 held out) and 26 val
-# images (260, so gelu_delta finds its 256), at 112 px (patch_len 2; the
-# finetune at 168 px), every stage of the pipeline, then gelu_delta in this
-# process on the retrained winner. The budget is the Tiny one scaled to the
-# 112 px token grid, as the study scales it.
-STUDY_SIZE, STUDY_FINETUNE_SIZE = 112, 168
-STUDY_FLAGS = {"--classes": "10", "--train-per-class": "64", "--val-per-class": "26",
-               "--holdout-per-class": "16", "--input-size": str(STUDY_SIZE),
-               "--batch-size": "128", "--supernet-epochs": "2", "--mask-warmup-epochs": "1",
-               "--retrain-epochs": "2", "--finetune-epochs": "1", "--popu": "8",
-               "--search-iters": "2", "--parent-size": "4", "--mutate-size": "2"}
-STUDY_BUDGET = TINY_BUDGET * (STUDY_SIZE / 224) ** 2
-STUDY_TIMEOUT_S = 600
-STUDY_KEYS = ("supernet_curve", "search_best_per_iter", "winner_def", "winner_mac",
-              "winner_curve", "winner_final_acc1", "random_def", "random_mac", "random_curve",
-              "random_final_acc1", "finetune_size", "finetune_curve", "eval_only")
-STUDY_SECTIONS = ("## 1. Supernet training learns", "## 2. Search improves fitness",
-                  "## 3. Searched net vs same-MAC controls", "## 4. Higher-resolution finetune",
-                  "## 5. Standalone `--eval`")
+STEM_CHANNELS = 24        # a conv stem's norms: 24 channels at half resolution
+
 # recipes: the 24 published scripts of RECIPE_DIR, each through the port's CLI
 # in this process with its own arguments, in an order where every script runs
 # after the one whose checkpoint it reads. Set here: IMAGENET_PATH (a view of
-# the cli phase's folder whose train and val are its sub-train and sub-val),
+# a synthetic folder whose train and val are its sub-train and sub-val),
 # MODEL_PATH (the searches: RECIPE_CHECKPOINT in the directory the script
 # names, which a one-epoch run writes where the script's default names epoch
 # 119's snapshot), one epoch of RECIPE_STEPS steps, the loader workers, and
@@ -453,6 +160,10 @@ RECIPES = ("super_net/tiny.sh", "super_net/small.sh", "super_net/no_distill/smal
            "searched_net/no_distill/small_conv-patch_mac@4.6G.sh",
            "finetune/medium_img-size@280.sh", "finetune/medium_img-size@392.sh",
            "eval/small_mac@2.9G.sh")
+# the recipes' synthetic image folder: 1000 classes (the heads keep their
+# published width), 4 train images per class at 256 px, 1 per class held out
+# as the sub-val
+FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_HOLDOUT, FOLDER_SIZE = 1000, 4, 1, 256
 RECIPE_EPOCHS, RECIPE_STEPS = 1, 2
 RECIPE_CHECKPOINT = "checkpoint"
 RECIPE_SEARCH = {"--init-popu-size": "8", "--search-iter": "2", "--parent-size": "4",
@@ -463,14 +174,13 @@ RECIPE_OVERRIDES = ("--data-path", "--model-path", "--epochs", "--max-steps-per-
 # a script whose own batch one card cannot hold runs at the largest power of
 # two that fits (script -> batch); none so far
 RECIPE_BATCH_CUTS: dict = {}
-# the recipes whose kernel shapes the kernel phase checks under the path
-# ``recipes`` (read from each script's network_def and token count): K1/K2
-# at every stage's widest heads, K3/K4 (supernets) at every stage's width
+# the recipes whose kernel shapes the table checks after the recipes ran
+# (read from each script's network_def and token count): K1/K2 at every
+# stage's widest heads, K3/K4 (supernets) at every stage's width
 RECIPE_KERNEL_SCRIPTS = (("Small supernet", "super_net/small.sh"),
                          ("sr_tiny_666 supernet", "super_net/no_distill/tiny.sh"),
                          ("reference net", "reference_net/tiny.sh"),
                          ("280 px finetune", "finetune/medium_img-size@280.sh"))
-COMM_REPS = 5
 # H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and f32 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
@@ -725,26 +435,18 @@ def flat(grads):
     return torch.cat(grads, dim=2) if isinstance(grads, tuple) else grads
 
 
-def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
-                    layout: str = "packed", nhd=None, dtype: str = "bfloat16"):
+def check_attention(stage: str, reps: int, b: int, n: int, h: int, d: int, layout: str,
+                    dtype: str = "bfloat16", backward: bool = True):
     """The attention kernels of ``layout`` (K1/K2 packed, K6/K7 separate,
     K8/K9 sequence-major; the backward where ``backward``) against their
-    plain versions at ``batch``: at stage ``stage`` (0-2) of the supernet, or
-    at ``nhd = (N, heads, head_dim)`` under the label ``stage``."""
+    plain versions at ``(b, n, h, d)``, labelled ``stage``."""
     import torch
     import torch.nn.functional as F
     from vit_search_torch.ops import attention as A
 
-    if nhd is None:
-        n, _, h, d = STAGES[stage]
-        stage, seed = stage + 1, stage
-    else:
-        n, h, d = nhd
-        seed = n + d
-    b, w = batch, h * d
-    scale = d ** -0.5
+    w, scale = h * d, d ** -0.5
     torch_dtype = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
     qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch_dtype)
     do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch_dtype)
     ins, g, (entry, fwd_cuda, bwd_cuda, fwd_plain, bwd_plain), views, g_view = attention_layout(
@@ -760,7 +462,7 @@ def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
     else:
         tol, peak = (F32_TOL, F32_TOL), PEAK_F32
         tolerance = f"abs <= {F32_TOL}*max|ref| + {F32_TOL}*|ref| (f32, CUDA cores)"
-    what = f"{fwd_name} stage {stage} B={b}"
+    what = f"{fwd_name} {stage} B={b}"
 
     # through autograd, as a caller uses it: the forward launches the forward
     # kernel, the backward the backward kernel; a scoring forward runs under
@@ -790,7 +492,7 @@ def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
     with torch.no_grad():
         lib_fwd_ms = time_ms(sdpa, reps)
     bfwd = bound(nbytes(*ins, ref_out), 4.0 * b * h * n * n * d, peak)
-    entries = [dict(name=fwd_name, stage=stage, shape=shape, path=path,
+    entries = [dict(name=fwd_name, stage=stage, shape=shape,
                     max_abs_err=err_fwd, tolerance=tolerance, ms=fwd_ms, call_ms=fwd_call_ms,
                     plain_ms=plain_fwd_ms, bound_ms=bfwd[0], bound_by=bfwd[1],
                     library_ms=lib_fwd_ms,
@@ -799,14 +501,14 @@ def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
         return entries
 
     ref_grads = bwd_plain(*ins, g, scale, h)
-    err_bwd = compare(f"{bwd_name} stage {stage} B={b}", flat(grads), flat(ref_grads), tol)
+    err_bwd = compare(f"{bwd_name} {stage} B={b}", flat(grads), flat(ref_grads), tol)
     bwd_call_ms = time_ms(lambda: bwd_cuda(*ins, g, scale, h), reps)
     bwd_ms = graph_ms(bwd_cuda, (*ins, g, scale, h), reps)
     plain_bwd_ms = time_ms(lambda: bwd_plain(*ins, g, scale, h), reps)
     lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sleaves, g_view), reps)
     bbwd = bound(nbytes(*ins, g, flat(ref_grads)), 10.0 * b * h * n * n * d, peak)
     entries.append(dict(
-        name=bwd_name, stage=stage, shape=shape, path=path,
+        name=bwd_name, stage=stage, shape=shape,
         max_abs_err=err_bwd, tolerance=tolerance, ms=bwd_ms, call_ms=bwd_call_ms,
         plain_ms=plain_bwd_ms, bound_ms=bbwd[0], bound_by=bbwd[1],
         library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
@@ -814,18 +516,16 @@ def check_attention(stage, reps: int, batch: int, path: str, backward: bool,
     return entries
 
 
-def masked_ln_inputs(stage: int, batch: int, nc=None):
-    """Seeded bf16 ``(x, mask, weight, bias, g)`` at stage ``stage`` (0-2)
-    of the supernet, or at ``nc = (N, C)`` seeded by ``stage``, a mask per
-    example of one of five widths."""
+def masked_ln_inputs(batch: int, n: int, c: int):
+    """Seeded bf16 ``(x, mask, weight, bias, g)`` at ``(batch, n, c)``, a
+    mask per example of one of five widths."""
     import numpy as np
     import torch
     from vit_search_torch.ops.masking import make_channel_mask
 
-    n, c = nc or STAGES[stage][:2]
-    gen = torch.Generator(device="cuda").manual_seed(100 + stage)
+    gen = torch.Generator(device="cuda").manual_seed(100 + n + c)
     widths = np.array([c, c * 7 // 8, c * 3 // 4, c * 11 // 16, c * 5 // 8])
-    counts = torch.as_tensor(np.random.default_rng(stage).choice(widths, batch), device="cuda")
+    counts = torch.as_tensor(np.random.default_rng(n + c).choice(widths, batch), device="cuda")
     mask = make_channel_mask(counts, c, dtype=torch.bfloat16)
     x = (torch.randn(batch, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
     g = torch.randn(batch, n, c, device="cuda", generator=gen).to(torch.bfloat16)
@@ -834,24 +534,22 @@ def masked_ln_inputs(stage: int, batch: int, nc=None):
     return x * mask, mask, w, bias, g
 
 
-def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool, nc=None):
-    """K3 (and K4 where ``backward``) against the plain versions at ``batch``,
-    at stage ``stage`` (0-2) of the supernet or at ``nc = (N, C)``."""
+def check_masked_ln(stage: str, reps: int, b: int, n: int, c: int, backward: bool):
+    """K3 (and K4 where ``backward``) against the plain versions at ``(b, n,
+    c)``, labelled ``stage``."""
     import torch
     import torch.nn.functional as F
     from vit_search_torch.ops import kernels
     from vit_search_torch.ops import masked_layer_norm as M
 
-    n, c = nc or STAGES[stage][:2]
-    b = batch
-    x, mask, w, bias, g = masked_ln_inputs(stage, b, nc)
+    x, mask, w, bias, g = masked_ln_inputs(b, n, c)
     shape = {"B": b, "N": n, "C": c, "dtype": "bfloat16"}
 
     y, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
     torch.cuda.synchronize()
     ref_y, ref_stats = M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6)
-    err_fwd = max(compare(f"K3 y stage {stage + 1} B={b}", y, ref_y, BF16_TOL),
-                  compare(f"K3 stats stage {stage + 1} B={b}", stats, ref_stats, STATS_TOL))
+    err_fwd = max(compare(f"K3 y {stage} B={b}", y, ref_y, BF16_TOL),
+                  compare(f"K3 stats {stage} B={b}", stats, ref_stats, STATS_TOL))
     fwd_call_ms = time_ms(lambda: M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6), reps)
     fwd_ms = graph_ms(M.masked_ln_fwd_cuda, (x, mask, w, bias, 1e-6), reps)
     plain_fwd_ms = time_ms(lambda: M.masked_ln_fwd_plain(x, mask, w, bias, 1e-6), reps)
@@ -868,8 +566,7 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
 
     with torch.no_grad():
         lib_fwd_ms = time_ms(layer_norm, reps)
-    entries = [dict(name="masked_layer_norm_fwd", stage=stage + 1, stage_index=stage,
-                    shape=shape, path=path,
+    entries = [dict(name="masked_layer_norm_fwd", stage=stage, shape=shape,
                     max_abs_err=err_fwd,
                     tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                                f"stats: {STATS_TOL}"),
@@ -884,9 +581,9 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
     gx, gw, gb = M.masked_ln_bwd_cuda(x, mask, w, stats, g)
     torch.cuda.synchronize()
     ref_gx, ref_gw, ref_gb = M.masked_ln_bwd_plain(x, mask, w, ref_stats, g)
-    err_bwd = compare(f"K4 gx stage {stage + 1} B={b}", gx, ref_gx, BF16_TOL)
-    err_sum = max(compare(f"K4 gw stage {stage + 1} B={b}", gw, ref_gw, F32_SUM_TOL),
-                  compare(f"K4 gb stage {stage + 1} B={b}", gb, ref_gb, F32_SUM_TOL))
+    err_bwd = compare(f"K4 gx {stage} B={b}", gx, ref_gx, BF16_TOL)
+    err_sum = max(compare(f"K4 gw {stage} B={b}", gw, ref_gw, F32_SUM_TOL),
+                  compare(f"K4 gb {stage} B={b}", gb, ref_gb, F32_SUM_TOL))
     bwd_call_ms = time_ms(lambda: M.masked_ln_bwd_cuda(x, mask, w, stats, g), reps)
     bwd_ms = graph_ms(M.masked_ln_bwd_cuda, (x, mask, w, stats, g), reps)
     plain_bwd_ms = time_ms(lambda: M.masked_ln_bwd_plain(x, mask, w, stats, g), reps)
@@ -894,8 +591,7 @@ def check_masked_ln(stage: int, reps: int, batch: int, path: str, backward: bool
                  14.0 * x.numel(), PEAK_F32)
     lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(layer_norm(), (lx, lw, lb), g), reps)
     entries.append(dict(
-        name="masked_layer_norm_bwd", stage=stage + 1, stage_index=stage, shape=shape,
-        path=path,
+        name="masked_layer_norm_bwd", stage=stage, shape=shape,
         max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
         tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                    f"gw/gb: {F32_SUM_TOL}"),
@@ -918,21 +614,20 @@ def k4_launches(entries, reps: int) -> None:
     for e in entries:
         if e["name"] != "masked_layer_norm_bwd":
             continue
-        x, mask, w, bias, g = masked_ln_inputs(e["stage_index"], e["shape"]["B"],
-                                               (e["shape"]["N"], e["shape"]["C"]))
+        x, mask, w, bias, g = masked_ln_inputs(*(e["shape"][k] for k in "BNC"))
         _, stats = M.masked_ln_fwd_cuda(x, mask, w, bias, 1e-6)
         _, _, _, top = profile_kernels(
             lambda: [M.masked_ln_bwd_cuda(x, mask, w, stats, g) for _ in range(reps)], top=50)
         split = {("fold" if "fold" in name else "rows"): ms / reps
                  for name, ms, _ in top if "masked_ln_bwd" in name}
         e.update(rows_ms=split.get("rows"), fold_ms=split.get("fold"))
-        log(f"K4 stage {e['stage']} B={e['shape']['B']}: rows {split.get('rows', 0):.4f} ms + "
+        log(f"K4 {e['stage']} B={e['shape']['B']}: rows {split.get('rows', 0):.4f} ms + "
             f"fold {split.get('fold', 0):.4f} ms per call (profiler); graph {e['ms']:.4f} ms")
 
 
-def check_layer_norm(label: str, n: int, c: int, reps: int, batch: int, path: str):
+def check_layer_norm(label: str, reps: int, b: int, n: int, c: int):
     """K3 and K4 in their dense mode (the layer norm of a net without masks)
-    at ``(batch, n, c)`` against the plain dense function in float32; ``plain_ms``
+    at ``(b, n, c)`` against the plain dense function in float32; ``plain_ms``
     is that function as the port ran it before (autograd through float32
     PyTorch ops), ``library_ms`` ``F.layer_norm``, which the port never calls."""
     import torch
@@ -940,7 +635,6 @@ def check_layer_norm(label: str, n: int, c: int, reps: int, batch: int, path: st
     from vit_search_torch.ops import kernels
     from vit_search_torch.ops import masked_layer_norm as M
 
-    b = batch
     gen = torch.Generator(device="cuda").manual_seed(600 + c)
     x = (torch.randn(b, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
     g = torch.randn(b, n, c, device="cuda", generator=gen).to(torch.bfloat16)
@@ -997,14 +691,14 @@ def check_layer_norm(label: str, n: int, c: int, reps: int, batch: int, path: st
     log(f"{what}: K3 dense {fwd_ms:.4f} ms, K4 dense {bwd_ms:.4f} ms (bounds {bfwd[0]:.4f} / "
         f"{bbwd[0]:.4f}); plain {plain_fwd_ms:.3f} / {plain_bwd_ms:.3f} ms; F.layer_norm "
         f"{lib_fwd_ms:.4f} / {lib_bwd_ms:.4f} ms")
-    return [dict(name="layer_norm_fwd", stage=label, shape=shape, path=path,
+    return [dict(name="layer_norm_fwd", stage=label, shape=shape,
                  max_abs_err=err_fwd,
                  tolerance=(f"y: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                             f"stats: {STATS_TOL}"),
                  ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
                  bound_by=bfwd[1], library_ms=lib_fwd_ms,
                  library_call="F.layer_norm forward (bf16 weight and bias)", plan=plans[0]),
-            dict(name="layer_norm_bwd", stage=label, shape=shape, path=path,
+            dict(name="layer_norm_bwd", stage=label, shape=shape,
                  max_abs_err=err_bwd, max_abs_err_gw_gb=err_sum,
                  tolerance=(f"gx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
                             f"gw/gb: {F32_SUM_TOL}"),
@@ -1035,13 +729,14 @@ def layout_of(t) -> str:
     return "channels_last" if t.is_contiguous(memory_format=torch.channels_last) else "other"
 
 
-def check_stem_norm(label: str, batch: int, img: int, train: bool, path: str, reps: int):
+def check_stem_norm(label: str, reps: int, batch: int, img: int, train: bool):
     """B1 (and in train mode B2) at a stem norm's shape, with the ReLU,
     against the float32 PyTorch ops the port ran before, with their own ReLU
     (:func:`check_relu_norm`); ``plain_ms`` is those ops under
     autograd, ``library_ms`` ``F.batch_norm`` (cuDNN) and ``F.relu``, which
-    the port never calls. Bounds: three passes over the activation forward
-    (two in eval mode), five backward."""
+    the port never calls. In train mode a row of B1's statistics alone (the
+    pass and its fold) comes first. Bounds: three passes over the activation
+    forward (two in eval mode, one for the statistics), five backward."""
     import torch
     import torch.nn.functional as F
     from vit_search_torch.ops import batch_norm as BN
@@ -1073,8 +768,20 @@ def check_stem_norm(label: str, batch: int, img: int, train: bool, path: str, re
     del z
 
     rm, rv = (t.clone() for t in stats)
+    tolerance = (f"y, dx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
+                 f"running statistics {STATS_TOL}; dw/db {F32_SUM_TOL}")
+    entries = []
     if train:
         mean, var, n = BN.batch_stats_cuda(x, rm, rv, 0.9)
+        stats_ms = graph_ms(BN.batch_stats_cuda, (x, rm, rv, 0.9), reps)
+        stats_call_ms = time_ms(lambda: BN.batch_stats_cuda(x, rm, rv, 0.9), reps)
+        bst = bound(nbytes(x), 0.0, PEAK_F32)
+        entries.append(dict(name="batch_norm_stats", stage=label, shape=shape,
+                            max_abs_err=errs["running"], errors=errs, tolerance=tolerance,
+                            ms=stats_ms, call_ms=stats_call_ms, plain_ms=None, bound_ms=bst[0],
+                            bound_by=bst[1], library_ms=None,
+                            library_call="none: cuDNN's batch norm has no statistics alone",
+                            what="B1 statistics"))
 
         def forward(x, rm, rv):
             m, v, _ = BN.batch_stats_cuda(x, rm, rv, 0.9)
@@ -1102,14 +809,12 @@ def check_stem_norm(label: str, batch: int, img: int, train: bool, path: str, re
         lib_fwd_ms = time_ms(library, reps)
     fwd_bytes = (3 if train else 2) * nbytes(x)
     bfwd = bound(fwd_bytes, 0.0, PEAK_F32)
-    entries = [dict(name="batch_norm_apply", stage=label, shape=shape, path=path,
-                    max_abs_err=errs["y"], errors=errs,
-                    tolerance=(f"y, dx: abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|; "
-                               f"running statistics {STATS_TOL}; dw/db {F32_SUM_TOL}"),
-                    ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
-                    bound_by=bfwd[1], library_ms=lib_fwd_ms,
-                    library_call="F.relu(F.batch_norm(...)) forward (cuDNN)",
-                    what=("B1 statistics and normalize" if train else "B1 normalize"))]
+    entries.append(dict(name="batch_norm_apply", stage=label, shape=shape,
+                        max_abs_err=errs["y"], errors=errs, tolerance=tolerance,
+                        ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bfwd[0],
+                        bound_by=bfwd[1], library_ms=lib_fwd_ms,
+                        library_call="F.relu(F.batch_norm(...)) forward (cuDNN)",
+                        what=("B1 statistics and normalize" if train else "B1 normalize")))
     line = (f"{what}: B1 {fwd_ms:.4f} ms (bound {bfwd[0]:.4f}, {fwd_call_ms:.4f} per call); "
             f"plain {plain_fwd_ms:.3f} ms; cuDNN {lib_fwd_ms:.4f} ms")
     if train:
@@ -1124,116 +829,65 @@ def check_stem_norm(label: str, batch: int, img: int, train: bool, path: str, re
         lib_bwd_ms = time_ms(lambda: torch.autograd.grad(library(), (leaf, lw, lb), g),
                              reps) - lib_fwd_ms
         bbwd = bound(5 * nbytes(x), 0.0, PEAK_F32)
-        entries.append(dict(name="batch_norm_bwd", stage=label, shape=shape, path=path,
-                            max_abs_err=errs["dx"], errors=errs, tolerance=entries[0]["tolerance"],
+        entries.append(dict(name="batch_norm_bwd", stage=label, shape=shape,
+                            max_abs_err=errs["dx"], errors=errs, tolerance=tolerance,
                             ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_bwd_ms,
                             bound_ms=bbwd[0], bound_by=bbwd[1], library_ms=lib_bwd_ms,
                             library_call="F.relu(F.batch_norm(...)) (forward+backward) - forward",
                             what="B2 sums and dx"))
-        line += (f"; B2 {bwd_ms:.4f} ms (bound {bbwd[0]:.4f}, {bwd_call_ms:.4f} per call); "
+        line += (f"; statistics alone {stats_ms:.4f} ms (bound {bst[0]:.4f}); "
+                 f"B2 {bwd_ms:.4f} ms (bound {bbwd[0]:.4f}, {bwd_call_ms:.4f} per call); "
                  f"plain {plain_bwd_ms:.3f} ms; cuDNN {lib_bwd_ms:.4f} ms")
     log(line + f"; errors {json.dumps(errs)}")
     return entries
 
 
-def stem_module(batch: int = 1024, img: int = 224, reps: int = 5) -> dict:
+def stem_module(label: str, reps: int, batch: int, img: int):
     """The whole ``PatchConvEmbed`` of the ViT-ResNAS cells (24 channels,
-    embed 240, bf16) through its module: a train forward and backward, then
-    an eval forward; each norm's input and gradient layouts as they arrive,
-    the launches of each record, the largest float32 tensor saved for the
-    backward, and each pass's time."""
+    embed 240, bf16) through its module, as one row: ``ms`` a train pass
+    (forward and backward), ``eval_ms`` an eval forward, each by CUDA events
+    around whole calls. Its launches and the tensors it saves are held by
+    the gpu tests."""
     import torch
-    from vit_search_torch.models.patch_embed import ConvBnAct, PatchConvEmbed
-    from vit_search_torch.ops import kernels
+    from vit_search_torch.models.patch_embed import PatchConvEmbed
 
     stem = PatchConvEmbed(img, 14, 240, STEM_CHANNELS, torch.bfloat16,
                           torch.Generator().manual_seed(0)).cuda()
     images = torch.randn(batch, img, img, 3, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
-    layouts = []
-
-    def note(module, args, out):
-        entry = {"y": layout_of(out)}
-        layouts.append(entry)
-        if out.requires_grad:
-            out.register_hook(lambda grad: entry.update(dy=layout_of(grad)))
-
-    hooks = [m.register_forward_hook(note) for m in stem.modules() if isinstance(m, ConvBnAct)]
-    saved = []
-
-    def pack(t):
-        saved.append((str(t.dtype), t.numel()))
-        return t
-
-    kernels.reset_launches()
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        out = stem(images)
-    out.backward(torch.ones_like(out))
-    torch.cuda.synchronize()
-    train_launches = {k.name: k.launches for k in kernels.KERNELS if k.name.startswith("batch_")}
-    for h in hooks:
-        h.remove()
-    kernels.reset_launches()
-    with torch.no_grad():
-        stem.eval()(images)
-    eval_launches = {k.name: k.launches for k in kernels.KERNELS if k.name.startswith("batch_")}
-    want_train = with_stem({}, STEM_NORMS, True)
-    want_eval = with_stem({}, STEM_NORMS, False)
-    if train_launches != want_train or eval_launches != want_eval:
-        raise AssertionError(f"stem: launches {train_launches} / {eval_launches}, expected "
-                             f"{want_train} / {want_eval}")
-    f32 = max([n for dtype, n in saved if dtype == "torch.float32"], default=0)
-    activation = batch * STEM_CHANNELS * (img // 2) ** 2
-    if f32 >= activation:
-        raise AssertionError(f"stem: a float32 tensor of {f32} elements is saved for the "
-                             f"backward (an activation holds {activation})")
-    stem.train()
-    grad = torch.ones_like(out)
-
-    def step():
-        stem(images).backward(grad)
-
-    train_ms = time_ms(step, reps)
+    grad = torch.ones_like(stem(images))
+    train_ms = time_ms(lambda: stem(images).backward(grad), reps)
     with torch.no_grad():
         stem.eval()
         eval_ms = time_ms(lambda: stem(images), reps)
-    return {"batch": batch, "img": img, "layouts": layouts, "train_launches": train_launches,
-            "eval_launches": eval_launches, "largest_saved_float32": f32,
-            "activation_elements": activation, "train_ms": train_ms, "eval_ms": eval_ms}
+    log(f"stem module {label} (B {batch}): forward+backward {train_ms:.3f} ms, eval forward "
+        f"{eval_ms:.3f} ms")
+    return [dict(name="PatchConvEmbed", stage=label,
+                 shape={"B": batch, "img": img, "C": STEM_CHANNELS, "dtype": "bfloat16"},
+                 source="vit_search_torch/models/patch_embed.py", replaces=None,
+                 max_abs_err=None, tolerance=None, ms=train_ms, eval_ms=eval_ms, call_ms=None,
+                 plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
+                 what="the whole conv stem: three Conv-BN-ReLU, the residual add, the "
+                      "projection")]
 
 
-def stem_phase(reps: int) -> dict:
-    """B1/B2 at each of ``STEM_CASES``, then the whole stem module."""
-    entries = []
-    for case in STEM_CASES:
-        entries += check_stem_norm(*case, reps)
-    module = stem_module()
-    log(f"stem module (B {module['batch']}, {module['img']} px): forward+backward "
-        f"{module['train_ms']:.3f} ms, eval forward {module['eval_ms']:.3f} ms; layouts "
-        f"{json.dumps(module['layouts'])}; launches {json.dumps(module['train_launches'])} / "
-        f"eval {json.dumps(module['eval_launches'])}; largest float32 saved "
-        f"{module['largest_saved_float32']}")
-    return {"entries": entries, "module": module}
-
-
-def check_row_stats(stage: int, reps: int, batch: int, path: str):
-    """K5 against its plain version at ``batch``."""
+def check_row_stats(stage: str, reps: int, batch: int, n: int, c: int):
+    """K5 against its plain version at ``(batch, n, c)``."""
     import torch
     from vit_search_torch.ops import stats as S
 
-    n, c, _, _ = STAGES[stage]
-    gen = torch.Generator(device="cuda").manual_seed(200 + stage)
+    gen = torch.Generator(device="cuda").manual_seed(200 + n)
     x = (torch.randn(batch, n, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
     s1, s2 = S.row_sum_sumsq_cuda(x)
     torch.cuda.synchronize()
     ref1, ref2 = S.row_sum_sumsq_plain(x)
-    err = max(compare(f"K5 sum stage {stage + 1} B={batch}", s1, ref1, STATS_TOL),
-              compare(f"K5 sumsq stage {stage + 1} B={batch}", s2, ref2, STATS_TOL))
+    err = max(compare(f"K5 sum {stage} B={batch}", s1, ref1, STATS_TOL),
+              compare(f"K5 sumsq {stage} B={batch}", s2, ref2, STATS_TOL))
     call_ms = time_ms(lambda: S.row_sum_sumsq_cuda(x), reps)
     ms = graph_ms(S.row_sum_sumsq_cuda, (x,), reps)
     plain_ms = time_ms(lambda: S.row_sum_sumsq_plain(x), reps)
     b = bound(nbytes(x, ref1, ref2), 3.0 * x.numel(), PEAK_F32)
-    return [dict(name="row_sum_sumsq", stage=stage + 1, path=path,
+    return [dict(name="row_sum_sumsq", stage=stage,
                  shape={"B": batch, "N": n, "C": c, "dtype": "bfloat16"}, max_abs_err=err,
                  tolerance=f"abs <= {STATS_TOL[0]}*max|ref| + {STATS_TOL[1]}*|ref| (f32 sums)",
                  ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b[0],
@@ -1273,9 +927,9 @@ def mean_abs_err(got, want) -> float:
     return float((got.detach().float() - want.detach().float()).abs().mean())
 
 
-def check_lab(stage: int, reps: int):
+def check_lab(stage: str, reps: int, b: int, n: int, h: int, d: int):
     """The attention lab's kernels (K10, K11, K12a, K12b) against their plain
-    versions at the train batch. Yardstick: SDPA's forward for K10, its
+    versions at ``(b, n, h, d)``. Yardstick: SDPA's forward for K10, its
     backward (forward+backward less forward) for K11 and for the pair K12a +
     K12b, whose time as one call (``split_cuda``, the concatenation
     included) the K12 entries carry as ``pair_ms``."""
@@ -1285,9 +939,8 @@ def check_lab(stage: int, reps: int):
     import torch.nn.functional as F
     from vit_search_torch.tools import attn_lab as lab
 
-    n, _, h, d = STAGES[stage]
-    b, w, scale = BATCH, h * d, d ** -0.5
-    gen = torch.Generator(device="cuda").manual_seed(400 + stage)
+    w, scale = h * d, d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(400 + n)
     qkv = torch.randn(b, n, 3 * w, device="cuda", generator=gen).to(torch.bfloat16)
     do = torch.randn(b, n, w, device="cuda", generator=gen).to(torch.bfloat16)
     shape = {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16", "layout": "packed"}
@@ -1310,7 +963,7 @@ def check_lab(stage: int, reps: int):
         got = cuda_fn(*args)
         torch.cuda.synchronize()
         want = plain(*args)
-        err = compare(f"{name} stage {stage + 1} B={b}", got, want, BF16_TOL)
+        err = compare(f"{name} {stage} B={b}", got, want, BF16_TOL)
         # the distinction the lab shows: the error against K1's / K2's plain
         # function, and (K10, K11) the mean error against the f32 function
         # beside that of K1 / K2 on the card, which must be larger
@@ -1322,17 +975,17 @@ def check_lab(stage: int, reps: int):
             closer = dict(f32_mean_err=mean_abs_err(got, f32),
                           base_f32_mean_err=mean_abs_err(base_cuda(*args), f32))
             if not closer["f32_mean_err"] < closer["base_f32_mean_err"]:
-                raise AssertionError(f"{name} stage {stage + 1}: mean error against the f32 "
+                raise AssertionError(f"{name} {stage}: mean error against the f32 "
                                      f"function {closer['f32_mean_err']:.3e} not below K1/K2's "
                                      f"{closer['base_f32_mean_err']:.3e}")
             del f32
         err_vs_base = float((got.float() - base_plain(*args).float()).abs().max())
         del got
-        log(f"{name} stage {stage + 1}: max abs err {err:.3e} against its plain version, "
+        log(f"{name} {stage}: max abs err {err:.3e} against its plain version, "
             f"{err_vs_base:.3e} against K1/K2's"
             + ("".join(f", {k} {v:.3e}" for k, v in closer.items())))
         bnd = bound(nbytes(*args[:-2], want), flops * b * h * n * n * d, PEAK_BF16)
-        e = dict(name=name, stage=stage + 1, shape=shape, path="lab", max_abs_err=err,
+        e = dict(name=name, stage=stage, shape=shape, max_abs_err=err,
                  err_vs_base=err_vs_base, **closer,
                  tolerance=tolerance, ms=graph_ms(cuda_fn, args, reps),
                  call_ms=time_ms(functools.partial(cuda_fn, *args), reps),
@@ -1348,323 +1001,6 @@ def check_lab(stage: int, reps: int):
                      "pair K12a + K12b's function (compare with pair_ms)")
         entries.append(e)
     return entries
-
-
-def check_extra_shapes(reps: int):
-    """The attention kernels past the supernet's shapes, with the launches of
-    the ``shapes`` path: the 392 px finetune's stage 1 (the bf16 backward on
-    the split route), K1/K2 in both dtypes and K6-K9 in bf16, and K1/K2 at
-    a head dim of 24."""
-    label, b, n, h, d = FINETUNE_392[0]
-    entries = []
-    for dtype, layout in (("bfloat16", "packed"), ("float32", "packed"),
-                          ("bfloat16", "separate"), ("bfloat16", "seq_major")):
-        entries += check_attention(label, reps, b, "shapes", backward=True, layout=layout,
-                                   nhd=(n, h, d), dtype=dtype)
-    label, b, n, h, d = HEAD_DIM_24
-    return entries + check_attention(label, reps, b, "shapes", backward=True, nhd=(n, h, d))
-
-
-def check_dense_shapes(reps: int):
-    """K1/K2 at the shapes the searched, finetune and distill paths give
-    them: the searched Tiny net's stages at their widest heads (B 512), the
-    392 px finetune's three stages (B 64; stage 1 on the split route) and
-    DeiT-S's (B 512, N 198, 6 heads of 64), bf16."""
-    entries = []
-    for path, shapes in (("searched", SEARCHED_SHAPES), ("finetune", FINETUNE_392),
-                         ("distill", DISTILL_SHAPES)):
-        for label, b, n, h, d in shapes:
-            entries += check_attention(label, reps, b, path, backward=True, nhd=(n, h, d))
-    return entries
-
-
-def check_kernels(stage: int, reps: int):
-    """Every kernel at the shapes each main path gives it: the train step's
-    batch (K1-K4; K5 at the same batch, the training step on the stats
-    route; K6-K9, the op-level API's), and a scoring forward's ``ARCH_BATCH * VAL_BATCH`` images (K1 and K5 on
-    the stats-route search, K1 and K3 on the fused-route one)."""
-    return (check_attention(stage, reps, BATCH, "train", backward=True)
-            + check_attention(stage, reps, BATCH, "ops", backward=True, layout="separate")
-            + check_attention(stage, reps, BATCH, "ops", backward=True, layout="seq_major")
-            + check_lab(stage, reps)
-            + check_masked_ln(stage, reps, BATCH, "train", backward=True)
-            + check_row_stats(stage, reps, BATCH, "search")
-            + check_attention(stage, reps, SEARCH_BATCH, "search", backward=False)
-            + check_masked_ln(stage, reps, SEARCH_BATCH, "search_fused", backward=False)
-            + check_row_stats(stage, reps, SEARCH_BATCH, "search"))
-
-
-def check_reference_net(ln_route: str, dtype=None, dense: bool = False,
-                        distill: bool = False):
-    """A small conv-stem supernet, float32 (or ``dtype``): card (kernels) vs
-    CPU (plain). In bfloat16 the loss, gradient norm and logits are held to
-    ``REF_NET_BF16_TOL``; AdamW's first step moves each parameter by about lr
-    whatever its gradient, so only the float32 run holds the parameters.
-    ``dense`` trains the same net as a searched net (no masks, so K3/K4's
-    dense mode on the card) with random erasing, gradient clipping and the
-    EMA on, the erasing boxes and noise drawn once on the host for both
-    devices; the EMA (decay
-    ``EMA_DECAY``, which damps the step's difference) is held to the
-    parameters' float32 tolerance in both dtypes. ``distill`` gives the net
-    a distill token and trains it with timm Mixup/CutMix (``elem`` mode),
-    dropout ``REF_DROPOUT`` and hard distillation from a narrow RegNetY
-    teacher (``REF_TEACHER``: the 112 px batch resized to 96 px), the mixup
-    draws and dropout keeps made once on the host; the teacher runs in
-    float32 in both dtypes (in bf16 its hard labels flip on near-ties, which
-    the loss cannot absorb), its logits held card vs CPU within 1e-4 in
-    float32 and, on the same input in bfloat16, within the bf16 logits
-    tolerance."""
-    import numpy as np
-    import torch
-    from vit_search_torch.data import sample_erasing_draws, sample_mixup_draws
-    from vit_search_torch.data.mixup import sample_token_mix_draws
-    from vit_search_torch.models import (RegNetYUpsample, SupernetSchedules, build_arch_masks,
-                                         create_model)
-    from vit_search_torch.train import (OptimConfig, StepDraws, TrainConfig, lr_schedule,
-                                        make_optimizer, make_teacher, make_train_step)
-
-    dtype = dtype or torch.float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    net = ((4, 64),
-           (1, (64, 4, 16), (64, 128), 1), (1, (64, 4, 16), (64, 128), 1),
-           (3, 64, 128),
-           (1, (128, 4, 32), (128, 256), 1),
-           (3, 128, 256),
-           (1, (256, 4, 64), (256, 512), 1),
-           (2, 256, 10))
-    space = [np.array([64, 48]),
-             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": None},
-             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]),
-              "layer": np.array([64, 0])},
-             np.array([128, 96]),
-             {"attn": np.array([128, 64]), "mlp": np.array([256, 192]), "layer": None},
-             np.array([256, 192]),
-             {"attn": np.array([256, 128]), "mlp": np.array([512, 256]), "layer": None},
-             None]
-    batch, img, clip = 8, 112, 1e-2
-    rng = np.random.default_rng(0)
-    images = torch.as_tensor(rng.integers(0, 256, (batch, img, img, 3), dtype=np.uint8))
-    labels = torch.as_tensor(rng.integers(0, 10, batch))
-    sched = SupernetSchedules(net, space, example_per_arch=2, num_warmup_epochs=0)
-    counts = None if dense else sched.sample_packed(rng, batch)
-    draws = StepDraws(mix=sample_token_mix_draws(rng, batch, 2),
-                      drop_keeps=[torch.as_tensor(rng.random(batch) < 0.9) for _ in range(8)])
-    cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2)
-    ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch)
-    name = "flexible_vit_sr_patch14_224_patch_output_supernet"
-    extra = {}
-    if dense:
-        name = SEARCHED_MODEL
-        cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2, ema_decay=EMA_DECAY,
-                          erasing_prob=0.5, erasing_mode="pixel", erasing_count=2)
-        ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch,
-                           clip_grad=clip)
-        draws.erasing = sample_erasing_draws(rng, batch, img, img, 0.5, 2)
-        draws.erasing.fill = torch.randn(2, batch, img, img, 3,
-                                         generator=torch.Generator().manual_seed(2))
-    if distill:
-        name = "flexible_vit_sr_distill_patch14_224_supernet"
-        extra = {"dropout_rate": REF_DROPOUT}
-        cfg = TrainConfig(num_classes=10, mixup_mode="mixup", mixup_elem_mode="elem",
-                          distill_alpha=0.5, hard_distill=True)
-        draws.mix, draws.mixup = None, sample_mixup_draws(rng, batch, img, img, mode="elem")
-    results = {}
-    for dev in ("cpu", "cuda"):
-        model = create_model(name, network_def=net, img_size=img, drop_path_rate=0.1,
-                             gelu="tanh", device=dev, seed=0, ln_route=ln_route, dtype=dtype,
-                             **extra)
-        if distill and draws.dropout_keeps is None:
-            draws.dropout_keeps = [torch.as_tensor(rng.random(shape) >= REF_DROPOUT)
-                                   for shape in model.dropout_shapes(batch)]
-        masks = None if dense else build_arch_masks(sched.unpack(counts, batch), net, batch,
-                                                    device=dev)
-        x = torch.randn(batch, img, img, 3, generator=torch.Generator().manual_seed(1)).to(dev)
-        dev_draws = StepDraws(mix=draws.mix, drop_keeps=[k.to(dev) for k in draws.drop_keeps],
-                              erasing=draws.erasing, mixup=draws.mixup,
-                              dropout_keeps=None if draws.dropout_keeps is None else
-                              [k.to(dev) for k in draws.dropout_keeps])
-        heads = model(x, masks, patch_output_type="seq", drop_keeps=dev_draws.drop_keeps,
-                      dropout_keeps=dev_draws.dropout_keeps)
-        teacher, teacher_logits = None, {}
-        if distill:
-            teacher_model = RegNetYUpsample(**REF_TEACHER, device=dev, seed=3)
-            teacher = make_teacher(teacher_model)
-            teacher_logits["float32"] = teacher(x).cpu()
-            teacher_bf16 = RegNetYUpsample(**REF_TEACHER, device=dev, seed=3,
-                                           dtype=torch.bfloat16)
-            teacher_logits["bfloat16"] = make_teacher(teacher_bf16)(x).float().cpu()
-        step = make_train_step(model, make_optimizer(ocfg, model), cfg,
-                               schedule=lr_schedule(ocfg),
-                               counts_unpack=None if dense else sched.unpack, device=dev,
-                               teacher=teacher)
-        metrics = step(images.to(dev), labels.to(dev), counts, draws=dev_draws)
-        ema = {k: v.detach().cpu() for k, v in (step.state.ema_params or {}).items()}
-        results[dev] = ([h.detach().cpu() for h in heads], float(metrics["loss"]),
-                        float(metrics["grad_norm"]),
-                        {k: v.detach().cpu() for k, v in model.state_dict().items()}, ema,
-                        teacher_logits)
-    (h0, l0, g0, sd0, ema0, t0), (h1, l1, g1, sd1, ema1, t1) = results["cpu"], results["cuda"]
-    bf16 = dtype == torch.bfloat16
-    tol = REF_NET_BF16_TOL if bf16 else {"logits": (1e-3, 1e-3), "loss": 1e-4,
-                                         "grad_norm": 1e-4}
-    second = "dst_logits" if distill else "patch_logits"
-    errs = {"cls_logits": compare("ref net cls logits", h1[0], h0[0], tol["logits"]),
-            second: compare(f"ref net {second}", h1[1], h0[1], tol["logits"])}
-    for what, a, b_ in (("loss", l1, l0), ("grad_norm", g1, g0)):
-        if not math.isclose(a, b_, rel_tol=tol[what]):
-            raise AssertionError(f"ref net {what}: card {a} vs CPU {b_}")
-        errs[what] = abs(a - b_)
-    if dense:
-        if not (g0 > clip and g1 > clip):
-            raise AssertionError(f"ref net: gradient norms {g0}, {g1} not clipped at {clip}")
-        if not draws.erasing.apply.any():
-            raise AssertionError("ref net: no image erased")
-        errs["ema_params"] = max(compare(f"ref net EMA {k}", ema1[k], ema0[k], (1e-4, 1e-4),
-                                         floor=1e-6) for k in ema0)
-    if distill:
-        errs["teacher_logits_f32"] = compare("ref net teacher logits", t1["float32"],
-                                             t0["float32"], (1e-4, 1e-4))
-        errs["teacher_logits_bf16"] = compare("ref net teacher logits, bf16", t1["bfloat16"],
-                                              t0["bfloat16"], REF_NET_BF16_TOL["logits"])
-        if not np.asarray(draws.mixup.use_cutmix).any() or np.asarray(
-                draws.mixup.use_cutmix).all():
-            raise AssertionError("ref net: the mixup draws took one branch only")
-    if bf16:
-        return errs
-    # AdamW's first step moves each parameter by about lr whatever the
-    # gradient's size, so parameters are held to an absolute floor
-    errs["params_after_step"] = max(compare(f"ref net {k}", sd1[k], sd0[k], (1e-4, 1e-4),
-                                            floor=1e-6) for k in sd0)
-    return errs
-
-
-def ops_path():
-    """The op-level API as a caller uses it, at every stage shape at the train
-    batch, forward and backward through autograd: ``fused_attention_packed``
-    on separate ``(B, N, W)`` q, k, v, ``fused_attention`` on the same values
-    as ``(B, N, H, D)`` tensors (its output and gradients must equal the
-    first call's: both run K6/K7), and ``fused_attention_qkv_t`` on an ``(N,
-    B, 3W)`` projection. The kernels' agreement with their plain versions is
-    held in ``check_attention``. Returns the launches of this window."""
-    import torch
-    from vit_search_torch.ops import attention as A
-    from vit_search_torch.ops import kernels
-
-    kernels.reset_launches()
-    for stage, (n, _, h, d) in enumerate(STAGES):
-        gen = torch.Generator(device="cuda").manual_seed(300 + stage)
-        w, scale = h * d, d ** -0.5
-        q, k, v, g = (torch.randn(BATCH, n, w, device="cuda", generator=gen).to(torch.bfloat16)
-                      for _ in range(4))
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = A.fused_attention_packed(*leaves, scale, h)
-        grads = torch.autograd.grad(out, leaves, g)
-        bnhd = [t.view(BATCH, n, h, d).clone().requires_grad_() for t in (q, k, v)]
-        out4 = A.fused_attention(*bnhd, scale)
-        grads4 = torch.autograd.grad(out4, bnhd, g.view(BATCH, n, h, d))
-        if out4.shape != (BATCH, n, h, d) or not torch.equal(out4.view(out.shape), out):
-            raise AssertionError(f"fused_attention stage {stage + 1}: not the output of "
-                                 f"fused_attention_packed on the same values")
-        if not all(torch.equal(a.view(b.shape), b) for a, b in zip(grads4, grads)):
-            raise AssertionError(f"fused_attention stage {stage + 1}: gradients differ")
-        qkv_t = torch.randn(n, BATCH, 3 * w, device="cuda", generator=gen).to(
-            torch.bfloat16).requires_grad_()
-        out_t = A.fused_attention_qkv_t(qkv_t, scale, h)
-        (grad_t,) = torch.autograd.grad(out_t, qkv_t, g.transpose(0, 1))
-        if out_t.shape != (n, BATCH, w) or grad_t.shape != qkv_t.shape:
-            raise AssertionError(f"fused_attention_qkv_t stage {stage + 1}: shapes "
-                                 f"{tuple(out_t.shape)}, {tuple(grad_t.shape)}")
-        if not (torch.isfinite(out_t).all() and torch.isfinite(grad_t).all()):
-            raise AssertionError(f"fused_attention_qkv_t stage {stage + 1}: non-finite")
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    check_launches(launches, PER_OPS_PASS, len(STAGES), "passes of the op-level API")
-    return {"passes": len(STAGES), "batch": BATCH, "launches": launches}
-
-
-def shapes_path():
-    """The attention entry points forward and backward through autograd at
-    the extra shapes (``EXTRA_CALLS``), as a caller of the op would run the
-    392 px finetune or a net with head dim 24: outputs and gradients finite
-    and of the expected shapes, one launch of the layout's forward and
-    backward kernel per call (the bf16 backward at N = 785 launches the
-    split route's two kernels as one call of K2, K7 or K9). The plain
-    comparisons are ``check_extra_shapes``'s. Returns the launches of this
-    window."""
-    import torch
-
-    from vit_search_torch.ops import kernels
-
-    kernels.reset_launches()
-    want = per_pass()
-    for (label, b, n, h, d), dtype, layout in EXTRA_CALLS:
-        gen = torch.Generator(device="cuda").manual_seed(500 + n + d)
-        qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).to(getattr(torch, dtype))
-        do = torch.randn(b, n, h * d, device="cuda", generator=gen).to(qkv.dtype)
-        ins, g, ops, _, _ = attention_layout(layout, qkv, do, h)
-        leaves = tuple(t.clone().requires_grad_() for t in ins)
-        out = ops[0](*leaves, d ** -0.5, h)
-        grads = torch.autograd.grad(out, leaves, g)
-        what = f"{label} {dtype} {layout}"
-        if out.shape != g.shape or any(a.shape != x.shape for a, x in zip(grads, leaves)):
-            raise AssertionError(f"{what}: shapes {tuple(out.shape)}, "
-                                 f"{[tuple(a.shape) for a in grads]}")
-        if not all(torch.isfinite(t).all() for t in (out, *grads)):
-            raise AssertionError(f"{what}: non-finite")
-        for name in ATTENTION_KERNELS[layout]:
-            want[name] += 1
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    check_launches(launches, want, 1, "calls at the extra shapes")
-    return {"calls": [[list(shape), dtype, layout] for shape, dtype, layout in EXTRA_CALLS],
-            "launches": launches}
-
-
-def lab_path():
-    """The attention lab as its user runs it, at its full-width shapes:
-    ``main()`` and ``main_split()``, their lines on stderr. Every kernel of
-    the run launches exactly as often as the run calls it, and the lab's own
-    errors (the transposed and split kernels against K1/K2) are within the
-    bf16 tolerance of the base output's largest value. Then, outside the
-    counted window, the lab's kernels against their plain versions at the
-    lab's shapes, on the inputs ``main()`` drew."""
-    import contextlib
-
-    import torch
-    from vit_search_torch.ops import kernels
-    from vit_search_torch.tools import attn_lab as lab
-
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):
-        records = lab.main(iters=LAB_ITERS)
-        split = lab.main_split(iters=LAB_ITERS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    check_launches(launches, PER_LAB_SHAPE, len(lab.SHAPES), "shapes of the lab")
-    atol = BF16_TOL[0]
-    for r, rs in zip(records, split):
-        for what, err, ref in (("bwd_err", r["bwd_err"], r["bwd_ref_max"]),
-                               ("fwd_err", r["fwd_err"], r["fwd_ref_max"]),
-                               ("split err", rs["err"], rs["ref_max"])):
-            if not err <= atol * ref:
-                raise AssertionError(f"lab {r['name']} {what} {err:.3e} above "
-                                     f"{atol} * max|base| = {atol * ref:.3e}")
-    # the plain versions' products in full f32, as in the kernel phase (the
-    # train and search phases turn TF32 on)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    plain_errs = {}
-    for name, b, n, h, d in lab.SHAPES:
-        qkv, do = lab.inputs(torch.device("cuda"), b, n, h, d)
-        for kname, cuda_fn, plain, with_do, _ in lab_cases():
-            args = (qkv, do, d ** -0.5, h) if with_do else (qkv, d ** -0.5, h)
-            plain_errs[f"{kname} {name}"] = compare(f"{kname} lab {name}", cuda_fn(*args),
-                                                    plain(*args), BF16_TOL)
-    return {"shapes": [list(s) for s in lab.SHAPES], "iters": LAB_ITERS, "seconds": seconds,
-            "main": records, "main_split": split, "plain_max_abs_err": plain_errs,
-            "launches": launches}
 
 
 def check_launches(launches: dict, per: dict, passes: int, what: str) -> None:
@@ -1731,9 +1067,10 @@ def run_steps(what: str, step, images, labels, counts, steps: int, warmup: int,
 def supernet_step(network_def=None, space: str = "sr_tiny_mh", batch: int = BATCH,
                   example_per_arch: int = EXAMPLE_PER_ARCH, drop_path: float = 0.2,
                   gelu: str = "tanh", patch_len: int = 4):
-    """The train phase's step: the full-width ``SUPERNET_SR_TINY_MH``
-    supernet, token mixup, drop_path 0.2, tanh GELU, bf16, AdamW; and its
-    keep-count sampler. A supernet recipe passes its script's values."""
+    """A supernet's train step and its keep-count sampler: by default the
+    full-width ``SUPERNET_SR_TINY_MH`` supernet at ``BATCH``, token mixup,
+    drop_path 0.2, tanh GELU, bf16, AdamW. A supernet recipe passes its
+    script's values."""
     import gc
 
     import torch
@@ -1742,7 +1079,7 @@ def supernet_step(network_def=None, space: str = "sr_tiny_mh", batch: int = BATC
     from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
                                         make_optimizer, make_train_step)
 
-    gc.collect()   # the last phase's model and optimizer off the card
+    gc.collect()   # an earlier model and optimizer off the card
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     net = network_def or presets.SUPERNET_SR_TINY_MH
@@ -1757,173 +1094,6 @@ def supernet_step(network_def=None, space: str = "sr_tiny_mh", batch: int = BATC
                            TrainConfig(num_classes=1000, mixup_mode="token", patch_len=patch_len),
                            schedule=lr_schedule(ocfg), counts_unpack=sched.unpack, seed=0)
     return step, sched
-
-
-def train(steps: int, warmup: int):
-    import numpy as np
-
-    step, sched = supernet_step()
-    images, labels = synthetic_batch(BATCH, 224, 0)
-    rng = np.random.default_rng(0)
-    return run_steps("train", step, images, labels, lambda: sched.sample_packed(rng, BATCH),
-                     steps, warmup, PER_STEP)
-
-
-def check_ema(what: str, step) -> None:
-    """The step's EMA is finite and not the parameters."""
-    import torch
-
-    ema, params = step.state.ema_params, dict(step.model.named_parameters())
-    if not all(torch.isfinite(t).all() for t in ema.values()):
-        raise AssertionError(f"{what}: non-finite EMA")
-    if all(torch.equal(t, params[k]) for k, t in ema.items()):
-        raise AssertionError(f"{what}: the EMA equals the parameters")
-
-
-def searched(steps: int, warmup: int):
-    """searched_net/tiny.sh: the dense ViT-ResNAS-Tiny at 224 px, batch
-    ``BATCH``, token mixup (patch_len 4), drop_path 0.2, random erasing,
-    EMA, AdamW, tanh GELU, bf16."""
-    import gc
-
-    import torch
-    from vit_search_torch.arch import network_def as nd
-    from vit_search_torch.arch import presets
-    from vit_search_torch.models import create_model
-    from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
-                                        make_optimizer, make_train_step)
-
-    gc.collect()
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    net = presets.VIT_RESNAS_TINY
-    if nd.existing_depth(net) != PER_SEARCHED_STEP["attention_qkv_fwd"]:
-        raise AssertionError("PER_SEARCHED_STEP does not count the net's attention layers")
-    if dense_lns(net) != PER_SEARCHED_STEP["layer_norm_fwd"]:
-        raise AssertionError("PER_SEARCHED_STEP does not count the net's layer norms")
-    if stem_norms(net) != PER_SEARCHED_STEP["batch_norm_apply"]:
-        raise AssertionError("PER_SEARCHED_STEP does not count the net's batch norms")
-    model = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
-                         drop_path_rate=0.2, gelu="tanh", seed=0)
-    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=300, steps_per_epoch=1000,
-                       global_batch_size=BATCH)
-    cfg = TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4,
-                      ema_decay=EMA_DECAY, **ERASING)
-    step = make_train_step(model, make_optimizer(ocfg, model), cfg,
-                           schedule=lr_schedule(ocfg), seed=0)
-    images, labels = synthetic_batch(BATCH, 224, 0)
-    out = run_steps("searched", step, images, labels, lambda: None, steps, warmup,
-                    PER_SEARCHED_STEP)
-    check_ema("searched", step)
-    return out
-
-
-def finetune(steps: int, warmup: int):
-    """finetune/medium_img-size@392.sh: ViT-ResNAS-Medium trains two steps
-    at 224 px with the EMA, is saved through ``CheckpointManager`` and read
-    back by ``restore_raw``; ``load_finetune`` resizes its EMA's position
-    tables on the card into the 392 px net (held to the same surgery on the
-    CPU within 1e-5, the cls rows bit for bit), which then trains at batch
-    ``FINETUNE_BATCH``: patch_len 7, drop_path 0.75, lr 5e-6, weight decay
-    1e-8, random erasing and the EMA on. The profiled step's backward
-    launches by name show K2's route at each stage: at 392 px stage 1 (N =
-    785, D = 32) the split route, two launches per call."""
-    import gc
-    import tempfile
-
-    import torch
-    from vit_search_torch.arch import network_def as nd
-    from vit_search_torch.arch import presets
-    from vit_search_torch.models import create_model, interpolate_pos_embeds
-    from vit_search_torch.ops import attention as A
-    from vit_search_torch.train import (CheckpointManager, OptimConfig, TrainConfig,
-                                        load_finetune, lr_schedule, make_optimizer,
-                                        make_train_step, restore_raw)
-
-    gc.collect()
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    net = presets.VIT_RESNAS_MEDIUM
-    if nd.existing_depth(net) != PER_FINETUNE_STEP["attention_qkv_fwd"]:
-        raise AssertionError("PER_FINETUNE_STEP does not count the net's attention layers")
-    if dense_lns(net) != PER_FINETUNE_STEP["layer_norm_fwd"]:
-        raise AssertionError("PER_FINETUNE_STEP does not count the net's layer norms")
-    if stem_norms(net) != PER_FINETUNE_STEP["batch_norm_apply"]:
-        raise AssertionError("PER_FINETUNE_STEP does not count the net's batch norms")
-
-    # the searched Medium net: two steps at 224 px, then its checkpoint
-    src = create_model(SEARCHED_MODEL, network_def=net, dtype=torch.bfloat16,
-                       drop_path_rate=0.3, gelu="tanh", seed=0)
-    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=0, epochs=300,
-                       global_batch_size=FINETUNE_BATCH)
-    src_step = make_train_step(src, make_optimizer(ocfg, src),
-                               TrainConfig(num_classes=1000, mixup_mode="token", patch_len=4,
-                                           ema_decay=EMA_DECAY, **ERASING),
-                               schedule=lr_schedule(ocfg), seed=0)
-    images, labels = synthetic_batch(FINETUNE_BATCH, 224, 2)
-    src_losses = [float(src_step(images, labels)["loss"]) for _ in range(2)]
-    if not all(math.isfinite(v) for v in src_losses):
-        raise AssertionError(f"finetune source: non-finite loss {src_losses}")
-    check_ema("finetune source", src_step)
-    del images, labels
-
-    with tempfile.TemporaryDirectory() as tmp:
-        CheckpointManager(tmp).save("best_ema", src_step, {"epoch": 0})
-        path = os.path.join(tmp, "best_ema")
-        raw = restore_raw(path)
-        del src_step, src
-        gc.collect()
-        model = create_model(FINETUNE_MODEL, network_def=net, dtype=torch.bfloat16,
-                             drop_path_rate=0.75, gelu="tanh", seed=1)
-        load_finetune(model, path)
-    card = dict(model.named_parameters())
-    want = interpolate_pos_embeds(raw["ema_params"], {k: v.detach().cpu()
-                                                      for k, v in card.items()},
-                                  model.num_tokens)
-    tables = {}
-    for k, v in want.items():
-        got = card[k].detach().cpu()
-        if k.endswith("pos_embed"):
-            tables[k] = [list(raw["ema_params"][k].shape), list(v.shape),
-                         float((got - v).abs().max())]
-            if tables[k][2] > 1e-5:
-                raise AssertionError(f"finetune {k}: card and CPU surgery differ by "
-                                     f"{tables[k][2]:.3e}")
-        elif not torch.equal(got, v):
-            raise AssertionError(f"finetune {k}: not the checkpoint's EMA")
-    if not torch.equal(card["pos_embed"][:, :1].detach().cpu(),
-                       raw["ema_params"]["pos_embed"][:, :1]):
-        raise AssertionError("finetune: the cls row of pos_embed moved")
-    del raw, want
-
-    ft_ocfg = OptimConfig(base_lr=5e-6, min_lr=5e-6, weight_decay=1e-8, warmup_epochs=5,
-                          epochs=30, steps_per_epoch=1000, global_batch_size=512)
-    cfg = TrainConfig(num_classes=1000, mixup_mode="token", patch_len=7,
-                      ema_decay=EMA_DECAY, **ERASING)
-    step = make_train_step(model, make_optimizer(ft_ocfg, model), cfg,
-                           schedule=lr_schedule(ft_ocfg), seed=0)
-    images, labels = synthetic_batch(FINETUNE_BATCH, 392, 3)
-    out = run_steps("finetune", step, images, labels, lambda: None, steps, warmup,
-                    PER_FINETUNE_STEP, top=1000)
-    check_ema("finetune", step)
-
-    # K2's route at each stage, from the net and from the profiled step's
-    # launches by kernel name
-    stages = [{k: st[k] for k in ("N", "D", "blocks")} for st in net_stages(net, 392)]
-    for st in stages:
-        st["route"] = "split" if A.backward_is_split(st["N"], st["D"]) else "one launch"
-    calls = {name: sum(c for key, _, c in out["profiled_step"]["top_kernels"] if name in key)
-             for name in ("attn_split_dq_kernel", "attn_split_dkv_kernel", "attn_bwd_kernel")}
-    split_blocks = sum(st["blocks"] for st in stages if st["route"] == "split")
-    if stages[0]["route"] != "split" or not (
-            calls["attn_split_dq_kernel"] == calls["attn_split_dkv_kernel"] == split_blocks
-            and calls["attn_bwd_kernel"] + split_blocks == sum(st["blocks"] for st in stages)):
-        raise AssertionError(f"finetune: K2's routes {stages} and its launches {calls} "
-                             f"disagree, or stage 1 is not on the split route")
-    out["profiled_step"]["top_kernels"] = out["profiled_step"]["top_kernels"][:12]
-    out.update(k2_routes=stages, k2_launches_by_name=calls, pos_embed_tables=tables,
-               source_losses=src_losses)
-    return out
 
 
 def script_command(path: str, env=None):
@@ -1946,129 +1116,14 @@ def script_command(path: str, env=None):
     return module.rsplit(".", 1)[1], argv
 
 
-def script_network_def(path: str):
-    """The ``--network-def`` literal of a training script, parsed by the
-    port's ``parse_network_def``."""
-    from vit_search_torch.arch import parse_network_def
-
-    _, args = script_command(path)
-    return parse_network_def(args[args.index("--network-def") + 1])
-
-
-def mixup(steps: int, warmup: int):
-    """super_net/no_distill/tiny_mh.sh: the supernet of the script's own
-    network_def (linear stem, sr_tiny_mh widths), space ``sr_tiny_mh``,
-    batch ``BATCH``, 32 examples per architecture, timm Mixup/CutMix in
-    batch mode, smoothing 0.1, drop_path 0.2, tanh GELU, bf16, AdamW, no
-    EMA; the same kernel launches per step as the train step."""
-    import gc
-
-    import numpy as np
-    import torch
-    from vit_search_torch.arch import network_def as nd
-    from vit_search_torch.arch import spaces
-    from vit_search_torch.models import SupernetSchedules, create_model
-    from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
-                                        make_optimizer, make_train_step)
-
-    gc.collect()
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    net = script_network_def(MIXUP_SCRIPT)
-    if nd.block_type(net[0]) != nd.LINEAR_EMBED or nd.existing_depth(net) != ATTENTION:
-        raise AssertionError(f"{MIXUP_SCRIPT}: not the linear-stem 18-block supernet")
-    model = create_model(MIXUP_MODEL, network_def=net, dtype=torch.bfloat16, drop_path_rate=0.2,
-                         gelu="tanh", seed=0)
-    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=120, steps_per_epoch=1000,
-                       global_batch_size=BATCH)
-    sched = SupernetSchedules(net, spaces.get_space("sr_tiny_mh"),
-                              example_per_arch=EXAMPLE_PER_ARCH, num_warmup_epochs=0,
-                              arch_mode="multi")
-    step = make_train_step(model, make_optimizer(ocfg, model),
-                           TrainConfig(num_classes=1000, smoothing=0.1, **MIXUP),
-                           schedule=lr_schedule(ocfg), counts_unpack=sched.unpack, seed=0)
-    images, labels = synthetic_batch(BATCH, 224, 4)
-    rng = np.random.default_rng(0)
-    out = run_steps("mixup", step, images, labels, lambda: sched.sample_packed(rng, BATCH),
-                    steps, warmup, PER_MIXUP_STEP)
-    out["network_def"] = repr(net)
-    return out
-
-
-def distill(steps: int, warmup: int):
-    """The DeiT-S distillation recipe: ``deit_small_distill_patch16_224``
-    (bf16, exact GELU, drop_path 0.1) at batch ``BATCH``, hard distillation
-    (alpha 0.5) from ``regnety_160_upsample`` (random weights from seed 0,
-    bf16, eval mode), Mixup/CutMix in batch mode, smoothing 0.1, EMA
-    0.99996, AdamW. K1/K2 12 launches per step, K3/K4's dense mode 25, the
-    masked K3/K4 and K5 none. The teacher's forward is bracketed by CUDA
-    events in every step; the timed steps' mean is its time per step."""
-    import gc
-
-    import torch
-    from vit_search_torch.arch import network_def as nd
-    from vit_search_torch.models import BatchNorm, create_model
-    from vit_search_torch.train import (OptimConfig, TrainConfig, lr_schedule,
-                                        make_optimizer, make_teacher, make_train_step,
-                                        normalize)
-
-    gc.collect()
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    model = create_model(DISTILL_MODEL, dtype=torch.bfloat16, drop_path_rate=0.1, seed=0)
-    if nd.existing_depth(model.network_def) != PER_DISTILL_STEP["attention_qkv_fwd"]:
-        raise AssertionError("PER_DISTILL_STEP does not count the net's attention layers")
-    if dense_lns(model.network_def) != PER_DISTILL_STEP["layer_norm_fwd"]:
-        raise AssertionError("PER_DISTILL_STEP does not count the net's layer norms")
-    teacher_model = create_model(TEACHER_MODEL, dtype=torch.bfloat16, seed=0)
-    forward = make_teacher(teacher_model)
-    per_step = dict(PER_DISTILL_STEP, batch_norm_apply=sum(
-        isinstance(m, BatchNorm) for m in teacher_model.modules()))
-    events = []
-
-    def teacher(images):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        logits = forward(images)
-        end.record()
-        events.append((start, end))
-        return logits
-
-    ocfg = OptimConfig(base_lr=5e-4, warmup_epochs=5, epochs=300, steps_per_epoch=1000,
-                       global_batch_size=BATCH)
-    cfg = TrainConfig(num_classes=1000, smoothing=0.1, **MIXUP, distill_alpha=0.5,
-                      hard_distill=True, ema_decay=EMA_DECAY)
-    step = make_train_step(model, make_optimizer(ocfg, model), cfg, schedule=lr_schedule(ocfg),
-                           seed=0, teacher=teacher)
-    images, labels = synthetic_batch(BATCH, 224, 5)
-    out = run_steps("distill", step, images, labels, lambda: None, steps, warmup, per_step)
-    check_ema("distill", step)
-    torch.cuda.synchronize()
-    timed = [s.elapsed_time(e) for s, e in events[warmup:warmup + steps]]
-    out["per_step"] = per_step
-    out["teacher_ms"] = sum(timed) / len(timed)
-    out["teacher_share"] = out["teacher_ms"] / out["step_ms"]
-    out["teacher_params"] = sum(p.numel() for p in teacher_model.parameters())
-    # the teacher's forward alone under the profiler, by kernel class
-    x = normalize(images, cfg)
-    busy_ms, wall_ms, classes, rows = profile_kernels(lambda: forward(x))
-    out["teacher_profile"] = {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
-                              "by_class_ms": classes, "top_kernels": rows}
-    log("distill: the teacher's forward alone, profiled: " + ", ".join(
-        f"{c} {ms:.1f}" for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]))
-        + f" ({busy_ms:.1f} ms device-busy)")
-    return out
-
-
-
 def host_cores() -> int:
     return len(os.sched_getaffinity(0))
 
 
 def make_folder(root: str) -> float:
-    """The synthetic image folder of the loader and cli phases
-    (``make_synthfolder``, one process per host core) with its holdout split
-    (``build_subsets``); returns the seconds it took."""
+    """The recipes' synthetic image folder (``make_synthfolder``, one
+    process per host core) with its holdout split (``build_subsets``);
+    returns the seconds it took."""
     import contextlib
 
     from vit_search_torch.data import build_subsets
@@ -2088,7 +1143,7 @@ def _make_folder_into(folder: str, seconds) -> None:
 
 def start_folder(folder: str):
     """:func:`make_folder` in a process of its own, so that the host makes the
-    folder while the card runs the kernel checks: ``(process, seconds)``,
+    folder while the card runs the table: ``(process, seconds)``,
     where ``seconds.value`` receives its time once it ends."""
     import multiprocessing
 
@@ -2107,87 +1162,6 @@ def stop(proc, scratch: str) -> None:
     shutil.rmtree(scratch, ignore_errors=True)
 
 
-def loader(folder: str):
-    """super_net/tiny.sh's input pipeline on the synthetic folder's
-    sub-train split: ``TrainTransform`` at 224 px with RandAugment
-    ``rand-m9-mstd0.5-inc1``, batch ``BATCH``, the process backend with one
-    worker per host core. A job is a whole batch, so an epoch of 5 batches
-    decodes them side by side and every rate here is a cold epoch's. First
-    the loader alone over one epoch (and, for comparison, on the thread
-    backend with as many threads); then an epoch of the train phase's step
-    fed from it through the device feed, timed from the epoch's start
-    (K1-K4 launches exact); then one step, its batch's wait included, under
-    the profiler: the device's idle share while the loader feeds it.
-    ``tools/loader_check.py`` measures the loader at small batches, where
-    the workers' rate is steady."""
-    import numpy as np
-    import torch
-    from vit_search_torch import data
-    from vit_search_torch.ops import kernels
-
-    cores = host_cores()
-    ds = data.build_dataset(True, data_set="IMNET", data_path=folder, use_holdout=True,
-                            transform=data.TrainTransform(size=224,
-                                                          rand_augment=LOADER_AUGMENT))
-
-    def epoch_alone(backend: str, epoch: int):
-        """One epoch of the loader alone: (images, seconds, first batch's seconds)."""
-        pipe = data.DataLoader(ds, data.ShardedSampler(len(ds), 1, 0), BATCH,
-                               num_workers=cores, drop_last=True, seed=0,
-                               worker_backend=backend)
-        pipe.set_epoch(epoch)
-        t0 = time.perf_counter()
-        first_s, seen = None, 0
-        for images, labels in pipe:
-            if images.shape != (BATCH, 224, 224, 3) or images.dtype != np.uint8:
-                raise AssertionError(f"loader: a batch of {images.shape} {images.dtype}")
-            first_s = first_s or time.perf_counter() - t0
-            seen += len(labels)
-        return seen, time.perf_counter() - t0, first_s, pipe
-
-    seen, loader_s, first_s, pipe = epoch_alone("process", 0)
-    thread_seen, thread_s, _, _ = epoch_alone("thread", 0)
-    out = {"host_cpu_count": os.cpu_count(), "host_cores": cores, "images": len(ds),
-           "classes": ds.num_classes, "batches_per_epoch": len(pipe),
-           "loader_imgs_per_s": seen / loader_s, "loader_first_batch_s": first_s,
-           "loader_thread_backend_imgs_per_s": thread_seen / thread_s}
-    log(f"loader alone: {seen} images in {loader_s:.2f} s on {cores} worker processes "
-        f"(first batch {first_s:.2f} s); {thread_s:.2f} s on {cores} threads")
-
-    # an epoch of the train phase's step fed by the loader, timed from the
-    # start of the epoch (the workers' start and first batch included)
-    step, sched = supernet_step()
-    rng = np.random.default_rng(0)
-    pipe.set_epoch(1)
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = [step(images, labels, sched.sample_packed(rng, BATCH))
-               for images, labels in data.prefetch_to_device(pipe, "cuda")]
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    losses = [float(m["loss"]) for m in metrics]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"loader-fed steps: non-finite loss: {losses}")
-    check_launches(launches, PER_STEP, len(metrics), "loader-fed steps")
-
-    # the profiled step: the third of a new epoch, so the workers are up
-    pipe.set_epoch(2)
-    feed = data.prefetch_to_device(pipe, "cuda")
-    for _ in range(2):
-        step(*next(feed), sched.sample_packed(rng, BATCH))
-    busy_ms, wall_ms, classes, rows = profile_kernels(
-        lambda: step(*next(feed), sched.sample_packed(rng, BATCH)))
-    feed.close()
-    out.update(steps=len(metrics), step_imgs_per_s=BATCH * len(metrics) / elapsed,
-               step_ms=1e3 * elapsed / len(metrics), losses=losses, launches=launches,
-               profiled_step={"device_busy_ms": busy_ms, "wall_ms": wall_ms,
-                              "idle_share": 1.0 - busy_ms / wall_ms, "by_class_ms": classes,
-                              "top_kernels": rows})
-    return out
-
-
 def with_flags(argv: list, flags: dict) -> list:
     """``argv`` with each flag of ``flags`` set to its value (replaced where
     present, else added)."""
@@ -2198,564 +1172,6 @@ def with_flags(argv: list, flags: dict) -> list:
         else:
             argv += [flag, value]
     return argv
-
-
-def cli(folder: str, root: str):
-    """``vit_search_torch.cli.train.main`` in-process on the card with
-    super_net/tiny.sh's own arguments, only the data path, batch ``BATCH``,
-    ``CLI_EPOCHS`` epochs of ``CLI_STEPS`` steps, the output directory and
-    one loader worker per host core set here: epoch 0, then a SIGTERM once
-    its log line is written (the run checkpoints in epoch 1 and returns),
-    ``--resume auto`` for the rest of epoch 1, then ``--eval`` from the last
-    checkpoint. K1-K4 launches are exact: 18/18/39/39 per train step, K1 18
-    and K3 39 per eval forward."""
-    import contextlib
-    import signal
-    import threading
-
-    from vit_search_torch.cli import train as train_cli
-    from vit_search_torch.ops import kernels
-    from vit_search_torch.train import restore_raw
-
-    out_dir = os.path.join(root, "cli")
-    argv = with_flags(script_command(SUPERNET_SCRIPT)[1], {
-        "--data-path": folder, "--batch-size": str(BATCH), "--epochs": str(CLI_EPOCHS),
-        "--max-steps-per-epoch": str(CLI_STEPS), "--output_dir": out_dir,
-        "--num_workers": str(host_cores())})
-    parser = train_cli.get_args_parser()
-    log_path = os.path.join(out_dir, "log.txt")
-    armed = threading.Event()
-    armed.set()
-
-    def preempt():
-        deadline = time.time() + 600
-        while armed.is_set() and time.time() < deadline:
-            if os.path.exists(log_path) and os.path.getsize(log_path):
-                if armed.is_set():
-                    os.kill(os.getpid(), signal.SIGTERM)
-                return
-            time.sleep(0.01)
-
-    def run(extra):
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):   # the CLI's console log
-            result = train_cli.main(parser.parse_args(argv + extra))
-        return result, time.perf_counter() - t0
-
-    kernels.reset_launches()
-    killer = threading.Thread(target=preempt, daemon=True)
-    killer.start()
-    try:
-        first, first_s = run([])
-    finally:
-        armed.clear()
-        killer.join(timeout=5)
-    if not first.get("preempted") or first["epoch"] != 1:
-        raise AssertionError(f"cli: the SIGTERM did not preempt epoch 1: {first}")
-    meta = restore_raw(os.path.join(out_dir, "checkpoints", "checkpoint"))["metadata"]
-    if (meta.get("preempted_step"), meta.get("steps_per_epoch"), meta.get("epoch")) != (
-            CLI_STEPS + first["step"], CLI_STEPS, 0):
-        raise AssertionError(f"cli: preemption checkpoint metadata {meta}")
-    resumed, resumed_s = run(["--resume", "auto"])
-    evaluated, eval_s = run(["--resume", "auto", "--eval"])
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-
-    with open(log_path) as f:
-        lines = [json.loads(line) for line in f]
-    if [line["epoch"] for line in lines] != list(range(CLI_EPOCHS)) or resumed["epoch"] != 1:
-        raise AssertionError(f"cli: logged epochs {[line['epoch'] for line in lines]}, "
-                             f"the resumed run ended at {resumed.get('epoch')}")
-    losses = [line["train_loss"] for line in lines]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"cli: non-finite loss: {losses}")
-    acc1 = evaluated["eval"]["acc1"]
-    if not 0.0 <= acc1 <= 100.0:
-        raise AssertionError(f"cli: eval acc1 {acc1}")
-    val_bs = parser.parse_args(argv).val_bs
-    forwards = 3 * math.ceil(FOLDER_CLASSES * FOLDER_HOLDOUT / val_bs)  # epochs 0, 1; --eval
-    train_steps = CLI_EPOCHS * CLI_STEPS
-    want = {name: PER_STEP[name] * train_steps + PER_FORWARD["fused"][name] * forwards
-            for name in KERNEL_NAMES}
-    if launches != want:
-        raise AssertionError(f"cli: launches {launches}, expected {want} ({train_steps} "
-                             f"train steps, {forwards} eval forwards)")
-    return {"argv": argv, "train_steps": train_steps, "eval_forwards": forwards,
-            "launches": launches, "preempted_at": first, "preemption_metadata": meta,
-            "epochs": lines, "epoch_imgs_per_s": [line["train_imgs_per_sec"] for line in lines],
-            "eval": evaluated["eval"], "seconds": {"first": first_s, "resumed": resumed_s,
-                                                   "eval": eval_s}}
-
-def dist_worker(rank: int, world: int, store: str, out: str) -> int:
-    """One rank of the ``dist`` phase, in a process of its own on the one
-    card, joined over gloo through the file ``store``: ``DIST_STEPS`` train
-    phase steps on its ``DIST_BATCH`` rows of the train phase's global batch,
-    the gather of the batch and the gradients' all-reduce timed alone at the
-    step's sizes, then the search phase's first generation (the native
-    generators' ``POPULATION`` random candidates) scored on its share of the
-    sub-val batches (batches ``rank::world``). Writes its numbers to
-    ``out/dist_rank<rank>.json``."""
-    import gc
-
-    import numpy as np
-    import torch
-    from vit_search_torch import parallel
-    from vit_search_torch.arch import ComputationEstimator, presets, spaces
-    from vit_search_torch.models import SupernetSchedules, create_model
-    from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
-    from vit_search_torch.search import BatchedSupernetEvaluator, PopulationEvolver
-    from vit_search_torch.tools import attn_lab  # noqa: F401  (registers K10-K12)
-
-    parallel.init_distributed(f"file://{store}", world, rank, local_rank=0, device="cuda",
-                              backend="gloo")
-    report = {"rank": rank, "group": parallel.describe()}
-    step, sched = supernet_step()
-    images, labels = synthetic_batch(BATCH, 224, 0)
-    lo, hi = parallel.batch_slice(BATCH)
-    images, labels = images[lo:hi].contiguous(), labels[lo:hi].contiguous()
-    rng = np.random.default_rng(0)
-    kernels.reset_launches()
-    metrics, report["step_s"] = [], []
-    for _ in range(DIST_STEPS):
-        parallel.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics.append(step(images, labels, sched.sample_packed(rng, BATCH)))
-        torch.cuda.synchronize()
-        report["step_s"].append(time.perf_counter() - t0)
-    report["train_launches"] = {k.name: k.launches for k in kernels.KERNELS}
-    report.update(dist_readings(step, metrics))
-    report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-
-    # the step's collectives alone, at its sizes: the uint8 batch's gather
-    # (token mixup needs the global batch) and the one flat all-reduce of
-    # the gradients
-    grads = [p.grad for p in step.params]
-    comm = {"gather_bytes": images.numel() * world, "grad_bytes": 4 * sum(g.numel() for g in grads)}
-    for name, fn in (("gather_ms", lambda: parallel.all_gather(images)),
-                     ("grad_all_reduce_ms", lambda: parallel.all_reduce_mean_(grads))):
-        parallel.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(COMM_REPS):
-            fn()
-        torch.cuda.synchronize()
-        comm[name] = 1e3 * (time.perf_counter() - t0) / COMM_REPS
-    report["collectives"] = comm
-    del step, metrics, grads
-    # the same steps again under each planted fault: the readings that the
-    # limits must catch
-    report["faults"] = {}
-    for fault, plant in PLANTED_FAULTS.items():
-        undo = plant()
-        try:
-            step, _ = supernet_step()
-            rng = np.random.default_rng(0)
-            metrics = [step(images, labels, sched.sample_packed(rng, BATCH))
-                       for _ in range(DIST_STEPS)]
-            report["faults"][fault] = dist_readings(step, metrics)
-        finally:
-            undo()
-        del step, metrics
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    net, space = presets.SUPERNET_SR_TINY_MH, spaces.get_space("sr_tiny_mh")
-    model = create_model(SEARCH_MODEL, network_def=net, dtype=torch.bfloat16, gelu="tanh",
-                         seed=0, ln_route="fused")
-    est = ComputationEstimator(distill=False, input_resolution=224, patch_size=14)
-    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="native")
-    evolver.random_sample(POPULATION)
-    defs = [ind.network_def for ind in evolver.popu]
-    loader = sub_val_loader()[rank::world]
-    evaluator = BatchedSupernetEvaluator(
-        model, SupernetSchedules(net, space, example_per_arch=1, num_warmup_epochs=0),
-        loader, arch_batch=ARCH_BATCH, score_head="cls")
-    kernels.reset_launches()
-    parallel.barrier()
-    t0 = time.perf_counter()
-    scores = evaluator.score(defs)
-    torch.cuda.synchronize()
-    report.update(score_s=time.perf_counter() - t0, backend=evolver.backend,
-                  score_launches={k.name: k.launches for k in kernels.KERNELS},
-                  forwards=-(-len(defs) // ARCH_BATCH) * len(loader),
-                  network_defs=[repr(d) for d in defs], scores=list(map(float, scores)))
-    with open(os.path.join(out, f"dist_rank{rank}.json"), "w") as f:
-        json.dump(report, f)
-    parallel.shutdown()
-    return 0
-
-
-def dist_readings(step, metrics) -> dict:
-    """What the dist phase holds two processes to one by: the steps' losses
-    and grad norms and the conv stem's running batch statistics."""
-    return {"losses": [float(m["loss"]) for m in metrics],
-            "grad_norms": [float(m["grad_norm"]) for m in metrics],
-            "bn_stats": {name: b.tolist() for name, b in step.model.named_buffers()
-                         if name.endswith(("running_mean", "running_var"))}}
-
-
-def plant_local_bn():
-    """Planted fault: the conv stem's batch statistics from this rank's rows
-    alone. Returns its undo."""
-    from types import SimpleNamespace
-
-    from vit_search_torch.ops import batch_norm
-
-    saved = batch_norm.parallel
-    batch_norm.parallel = SimpleNamespace(sum_over_processes=lambda x: x,
-                                          process_count=lambda: 1)
-    return lambda: setattr(batch_norm, "parallel", saved)
-
-
-def plant_local_drop_path():
-    """Planted fault: drop-path keeps drawn at this rank's shape instead of
-    cut from the global batch's (no ``RowShard``). Returns its undo."""
-    from vit_search_torch.train import engine
-
-    saved = engine.RowShard
-    engine.RowShard = lambda generator, *rows: generator
-    return lambda: setattr(engine, "RowShard", saved)
-
-
-PLANTED_FAULTS = {"local_bn_stats": plant_local_bn, "local_drop_path": plant_local_drop_path}
-
-
-def one_process_readings() -> dict:
-    """:func:`dist_readings` of ``DIST_STEPS`` train phase steps on the
-    whole global batch in this process."""
-    import gc
-
-    import numpy as np
-    import torch
-
-    step, sched = supernet_step()
-    images, labels = synthetic_batch(BATCH, 224, 0)
-    rng = np.random.default_rng(0)
-    metrics = [step(images, labels, sched.sample_packed(rng, BATCH))
-               for _ in range(DIST_STEPS)]
-    out = dist_readings(step, metrics)
-    del step, metrics
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
-
-
-def dist_gaps(got: dict, want: dict) -> dict:
-    """Relative gaps of :func:`dist_readings`: the largest over the steps for
-    the losses and grad norms, the largest by norm over the statistics."""
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-
-    bn = [math.dist(got["bn_stats"][k], v) / math.hypot(*v) for k, v in want["bn_stats"].items()]
-    return {"loss": max(map(rel, got["losses"], want["losses"])),
-            "grad_norm": max(map(rel, got["grad_norms"], want["grad_norms"])),
-            "bn_stats": max(bn)}
-
-
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
-def dist(folder: str, root: str, search_fused: dict):
-    """Two processes on the one card over gloo (``dist_worker``), held to one
-    process on the same global data: losses, grad norms and the conv stem's
-    running statistics within ``DIST_TOL`` of the train phase's first
-    ``DIST_STEPS`` steps run again here (the same model, batch, counts and
-    draws), and each of ``PLANTED_FAULTS`` caught; the first generation's scores
-    equal to the fused-route search phase's (the same candidates, batches
-    and forward shapes), both ranks equal bit for bit, K1-K4 18/18/39/39
-    launches per rank-step and K1/K3 18/39 per scoring forward. Then ``python
-    -m vit_search_torch.cli.launch`` under a torchrun environment of one
-    process on NCCL: one epoch of ``LAUNCH_STEPS`` steps of
-    super_net/tiny.sh on the cli phase's folder."""
-    out = os.path.join(root, "dist")
-    os.makedirs(out)
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
-                               str(r), str(DIST_PROCS), os.path.join(out, "store"), out],
-                              cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(DIST_PROCS)]
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    workers_s = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"dist: rank {r} exited {p.returncode}:\n{text[-6000:]}")
-    ranks = []
-    for r in range(DIST_PROCS):
-        with open(os.path.join(out, f"dist_rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    r0 = ranks[0]
-    for r in ranks[1:]:
-        for key in ("losses", "grad_norms", "bn_stats", "scores", "network_defs"):
-            if r[key] != r0[key]:
-                raise AssertionError(f"dist: ranks disagree on {key}: {r0[key]} vs {r[key]}")
-    one = one_process_readings()
-    # the sound run within every limit; each planted fault caught, by the
-    # ranks' disagreement or by a gap over its limit
-    gaps = {"sound": dist_gaps(r0, one)}
-    faults = {}
-    for fault in PLANTED_FAULTS:
-        got = [r["faults"][fault] for r in ranks]
-        gaps[fault] = dist_gaps(got[0], one)
-        faults[fault] = {"ranks_agree": all(g == got[0] for g in got),
-                         "over": [k for k, tol in DIST_TOL.items() if gaps[fault][k] > tol]}
-    print(f"dist: gaps of two processes to one (limits {json.dumps(DIST_TOL)}): "
-          f"{json.dumps(gaps)}; planted faults {json.dumps(faults)}", flush=True)
-    over = [k for k, tol in DIST_TOL.items() if gaps["sound"][k] > tol]
-    if over:
-        raise AssertionError(f"dist: two processes against one over the limits on {over}: "
-                             f"{gaps['sound']}")
-    missed = [f for f, v in faults.items() if v["ranks_agree"] and not v["over"]]
-    if missed:
-        raise AssertionError(f"dist: the limits do not catch the planted faults {missed}")
-    first = search_fused["first_generation"]
-    if r0["network_defs"] != first["network_defs"] or r0["backend"] != "native":
-        raise AssertionError("dist: the native generators drew other candidates than the "
-                             "search phase's")
-    if r0["scores"] != first["scores"]:
-        raise AssertionError(f"dist: scores {r0['scores']} vs one process {first['scores']}")
-    for r in ranks:
-        check_launches(r["train_launches"], PER_STEP, DIST_STEPS, f"rank {r['rank']} steps")
-        check_launches(r["score_launches"], PER_FORWARD["fused"], r["forwards"],
-                       f"rank {r['rank']} scoring forwards")
-    launches = {name: r0["train_launches"][name] + r0["score_launches"][name]
-                for name in KERNEL_NAMES}
-    # the last step's time, the slower rank's: the first pays the libraries'
-    # warm-up
-    step_s = max(r["step_s"][-1] for r in ranks)
-
-    # cli.launch as torchrun starts it, one process, NCCL
-    launch_out = os.path.join(root, "launch")
-    argv = with_flags(script_command(SUPERNET_SCRIPT)[1], {
-        "--data-path": folder, "--batch-size": str(BATCH), "--epochs": "1",
-        "--max-steps-per-epoch": str(LAUNCH_STEPS), "--output_dir": launch_out,
-        "--num_workers": str(host_cores())})
-    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "vit_search_torch.cli.launch", *argv],
-                          cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
-    launch_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"dist: cli.launch exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    with open(os.path.join(launch_out, "verbose.log")) as f:
-        group = next((line for line in f if "over nccl" in line), None)
-    if group is None or "rank 0 of 1 over nccl" not in group:
-        raise AssertionError(f"dist: cli.launch did not run over NCCL: {group}")
-    with open(os.path.join(launch_out, "log.txt")) as f:
-        lines = [json.loads(line) for line in f]
-    if [line["epoch"] for line in lines] != [0] or not math.isfinite(lines[0]["train_loss"]):
-        raise AssertionError(f"dist: cli.launch logged {lines}")
-    return {"ranks": ranks, "launches": launches, "workers_s": workers_s,
-            "two_process_imgs_per_s": BATCH / step_s, "one_process": one,
-            "gaps": gaps, "planted_faults": faults,
-            "launch": {"argv": argv, "seconds": launch_s, "group": group.strip(),
-                       "epochs": lines}}
-
-
-def sub_val_loader():
-    """Synthetic sub-val batches of uint8 images on the card, the same at
-    every call; the last batch has ``LAST_VALID`` valid rows."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    loader = []
-    for i in range(VAL_BATCHES):
-        valid = torch.ones(VAL_BATCH, device="cuda")
-        if i == VAL_BATCHES - 1:
-            valid[LAST_VALID:] = 0
-        loader.append((torch.randint(0, 256, (VAL_BATCH, 224, 224, 3), dtype=torch.uint8,
-                                     device="cuda", generator=gen),
-                       torch.randint(0, 1000, (VAL_BATCH,), device="cuda", generator=gen),
-                       valid))
-    return loader
-
-
-def chunk_forward(model, sched, defs, images):
-    """One chunk's tiled forward, as the evaluator runs it: the logits (on the
-    host) and the forward's time."""
-    import numpy as np
-    import torch
-    from vit_search_torch.models import build_arch_masks
-    from vit_search_torch.train import TrainConfig, normalize
-
-    counts = sched.counts_for_subnets(defs)
-    tiled = {"embed": np.repeat(counts["embed"], VAL_BATCH),
-             "slots": {s: {k: np.repeat(v, VAL_BATCH) for k, v in site.items()}
-                       for s, site in counts["slots"].items()}}
-    masks = build_arch_masks(tiled, model.network_def, SEARCH_BATCH, device="cuda")
-    x = normalize(images, TrainConfig()).repeat(ARCH_BATCH, 1, 1, 1)
-    with torch.no_grad():
-        logits = model.eval()(x, masks).float().cpu()
-        ms = time_ms(lambda: model(x, masks), reps=2, warmup=0)
-    return logits, ms
-
-
-def python_generations(net, space, est):
-    """Host seconds of the Python generators for the search phase's two
-    generations (random ``POPULATION``, then ``MUTATIONS`` mutations and as
-    many crossovers), scored by a deterministic stand-in for accuracy."""
-    from vit_search_torch.search import PopulationEvolver
-
-    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="python")
-    seconds = []
-    for generation in range(2):
-        t0 = time.perf_counter()
-        if generation == 0:
-            evolver.random_sample(POPULATION)
-        else:
-            evolver.evolve_sample(parent_size=PARENTS, mutate_prob=MUTATE_PROB,
-                                  mutate_size=MUTATIONS)
-        seconds.append(time.perf_counter() - t0)
-        for ind in evolver.popu:
-            ind.score = float(est(ind.network_def) % 997) / 10.0
-        evolver.update_history()
-    return seconds
-
-
-def search(ln_route: str, card: str):
-    """Score an evolutionary population on the full-width supernet with its
-    masked LNs on ``ln_route``. Returns the report and one chunk's logits."""
-    import gc
-
-    import numpy as np
-    import torch
-    from vit_search_torch.arch import ComputationEstimator, presets, spaces
-    from vit_search_torch.models import SupernetSchedules, create_model
-    from vit_search_torch.ops import kernels
-    from vit_search_torch.search import (BatchedSupernetEvaluator, PopulationEvolver,
-                                         gen_random_network_def)
-    from vit_search_torch.search.generators import RESOURCE_LOWER_BOUND
-
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    net, space = presets.SUPERNET_SR_TINY_MH, spaces.get_space("sr_tiny_mh")
-    model = create_model(SEARCH_MODEL, network_def=net, dtype=torch.bfloat16, gelu="tanh",
-                         seed=0, ln_route=ln_route)
-    sched = SupernetSchedules(net, space, example_per_arch=1, num_warmup_epochs=0,
-                              arch_mode="multi")
-    loader = sub_val_loader()
-    evaluator = BatchedSupernetEvaluator(model, sched, loader, arch_batch=ARCH_BATCH,
-                                         score_head="cls")
-    est = ComputationEstimator(distill=False, input_resolution=224, patch_size=14)
-    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="native")
-    if evolver.backend != "native":
-        raise AssertionError(f"search: the evolver took the {evolver.backend} generators")
-
-    # warm-up, and one chunk's logits for the cross-check of the two routes
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(1)
-    check_defs = [gen_random_network_def(net, space, TINY_BUDGET, est, rng=rng)
-                  for _ in range(ARCH_BATCH)]
-    evaluator.score(check_defs)
-    logits, chunk_ms = chunk_forward(model, sched, check_defs, loader[0][0])
-    warm_s = time.perf_counter() - t0
-
-    # the main path: generators on the host, scoring on the card
-    gc.collect()
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    gen_s = score_s = 0.0
-    forwards = 0
-    native_gen_s, first = [], {}
-    for generation in range(2):
-        t0 = time.perf_counter()
-        if generation == 0:
-            evolver.random_sample(POPULATION)
-        else:
-            evolver.evolve_sample(parent_size=PARENTS, mutate_prob=MUTATE_PROB,
-                                  mutate_size=MUTATIONS)
-        t1 = time.perf_counter()
-        defs = [ind.network_def for ind in evolver.popu]
-        scores = evaluator.score(defs)
-        torch.cuda.synchronize()
-        if generation == 0:
-            first = {"network_defs": [repr(d) for d in defs], "scores": list(map(float, scores))}
-        native_gen_s.append(t1 - t0)
-        gen_s += t1 - t0
-        score_s += time.perf_counter() - t1
-        forwards += -(-len(defs) // ARCH_BATCH) * len(loader)
-        for ind, sc in zip(evolver.popu, scores):
-            ind.score = float(sc)
-        evolver.update_history()
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-
-    candidates = evolver.history_popu
-    lo = RESOURCE_LOWER_BOUND * TINY_BUDGET
-    macs = [est(ind.network_def) for ind in candidates]
-    if len(candidates) != POPULATION + 2 * MUTATIONS:
-        raise AssertionError(f"{len(candidates)} candidates scored")
-    if not all(lo <= m <= TINY_BUDGET for m in macs):
-        raise AssertionError(f"candidate MACs outside [{lo}, {TINY_BUDGET}]: {macs}")
-    if not all(math.isfinite(i.score) and 0.0 <= i.score <= 100.0 for i in candidates):
-        raise AssertionError(f"scores outside [0, 100]: {[i.score for i in candidates]}")
-    check_launches(launches, PER_FORWARD[ln_route], forwards, f"forwards on {ln_route}")
-    mismatched = [ind.network_def for ind in candidates
-                  if evolver.native.estimate_mac(ind.network_def) != est(ind.network_def)]
-    if mismatched:
-        raise AssertionError(f"native estimate_mac differs from the estimator on {mismatched}")
-    python_gen_s = python_generations(net, space, est)
-    # one chunk (a forward per sub-val batch) under the profiler
-    busy_ms, wall_ms, classes, top = profile_kernels(lambda: evaluator.score(check_defs))
-
-    # the reference search at the measured seconds per candidate-image
-    # forwarded (a short last chunk forwards fewer) and per candidate
-    ref = REFERENCE_SEARCH
-    ref_candidates = ref["first"] + ref["generations"] * ref["per_generation"]
-    ref_images = ref_candidates * -(-ref["sub_val_images"] // VAL_BATCH) * VAL_BATCH
-    images = len(candidates) * VAL_BATCHES * VAL_BATCH
-    valid_images = (VAL_BATCHES - 1) * VAL_BATCH + LAST_VALID
-    out = {"ln_route": ln_route, "candidates": len(candidates), "forwards": forwards,
-           "images_per_forward": SEARCH_BATCH, "valid_images": valid_images,
-           "candidate_images_forwarded": images,
-           "candidates_per_s": len(candidates) / score_s,
-           "candidate_images_per_s": len(candidates) * valid_images / score_s,
-           "score_s": score_s, "generator_s": gen_s, "warmup_s": warm_s,
-           "generator_backend": evolver.backend,
-           "generator_s_per_generation": {"native": native_gen_s, "python": python_gen_s},
-           "first_generation": first,
-           "max_memory_allocated_bytes": peak, "chunk_forward_ms": chunk_ms,
-           "launches": launches, "macs_min_max": [min(macs), max(macs)],
-           "best": {"score": evolver.best().score,
-                    "network_def": repr(evolver.best().network_def)},
-           "profiled_chunk": {"forwards": len(loader), "device_busy_ms": busy_ms,
-                              "wall_ms": wall_ms, "by_class_ms": classes, "top_kernels": top},
-           "reference_search": {**ref, "candidate_images_forwarded": ref_images,
-                                "scoring_s": ref_images * score_s / images,
-                                "generator_s": ref_candidates * gen_s / len(candidates)}}
-    print(f"search, ln_route={ln_route}: {out['candidates_per_s']:.2f} candidates/s, "
-          f"{out['candidate_images_per_s']:.1f} candidate-images/s ({len(candidates)} "
-          f"candidates x {valid_images} images, {SEARCH_BATCH} images per forward), host "
-          f"generators {gen_s:.3f} s, peak memory {peak / 2**30:.2f} GiB on {card}",
-          flush=True)
-    print(f"native, ln_route={ln_route}: {len(candidates)} candidates in the MAC band, native "
-          f"estimate_mac equal to the estimator on each; host generator s per generation "
-          f"(random {POPULATION}, then {MUTATIONS} + {MUTATIONS}): native "
-          + " / ".join(f"{v:.4f}" for v in native_gen_s) + ", python "
-          + " / ".join(f"{v:.4f}" for v in python_gen_s) + f" on {card}", flush=True)
-    n = len(loader)
-    by_class = ", ".join(f"{c} {ms / n:.1f}" for c, ms in sorted(classes.items(),
-                                                                   key=lambda kv: -kv[1]))
-    log(f"search, ln_route={ln_route}: {1e3 * score_s * SEARCH_BATCH / images:.1f} ms per "
-        f"{SEARCH_BATCH} candidate-images ({chunk_ms:.1f} ms for the cross-check chunk's "
-        f"forward alone); profiled, per full forward: {busy_ms / n:.1f} ms device-busy of "
-        f"{wall_ms / n:.1f} ms ({by_class}); the reference search ({ref_candidates} "
-        f"candidates, {ref_images} candidate-images forwarded) would take "
-        f"{out['reference_search']['scoring_s'] / 3600:.2f} h of scoring and "
-        f"{out['reference_search']['generator_s']:.0f} s of generators")
-    return out, logits
 
 
 def kernel_attention_blocks(network_def, img_size: int, patch_size: int = 14,
@@ -2774,117 +1190,6 @@ def kernel_attention_blocks(network_def, img_size: int, patch_size: int = 14,
         else:
             grid //= 2
     return count
-
-
-def start_study(root: str):
-    """Start the study of :func:`study` in a process session of its own, its
-    output to a file: ``(process, argv, start time)``."""
-    out = os.path.join(root, "study")
-    argv = [sys.executable, "-m", "vit_search_torch.tools.accuracy_study", "--root", out,
-            *[a for kv in STUDY_FLAGS.items() for a in kv], "--num-workers", str(host_cores())]
-    with open(os.path.join(root, "study_stdout.txt"), "w") as f:
-        proc = subprocess.Popen(argv, cwd=HERE, stdout=f, stderr=subprocess.STDOUT,
-                                start_new_session=True)
-    return proc, argv, time.perf_counter()
-
-
-def end_session(proc) -> None:
-    """Kill ``proc``'s process session (it and the processes it started) if
-    it still runs."""
-    import signal
-
-    if proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-
-
-def study(root: str, started):
-    """``python -m vit_search_torch.tools.accuracy_study`` as users run it, in
-    a subprocess on the card at ``STUDY_FLAGS``' scale with one loader
-    worker per host core: the data, the supernet (``cli.train``), the search
-    (``cli.evo_search`` on the checkpoint the supernet run wrote), the winner
-    and the random control retrained, the 168 px finetune (``cli.train
-    --finetune``) and ``--eval``. The study must exit 0 with every summary
-    key, both nets within the scaled budget, every loss finite and every
-    top-1 in [0, 100]; the port's ``render_results`` must render all five
-    sections. Then ``tools.gelu_delta.main`` in this process on the
-    retrained winner at 112 px: finite numbers, and K1 launched exactly
-    twice (one forward per GELU form) per attention block of the winner
-    that takes the kernel (at 112 px the third stage has N = 5 tokens,
-    which run the plain version), and K3's dense mode twice per layer norm
-    (``dense_lns``), no other kernel. The subprocesses' launches cannot be
-    read from here; the cli phase counts the CLIs' own."""
-    import contextlib
-
-    from vit_search_torch.arch import network_def as nd
-    from vit_search_torch.arch import parse_network_def
-    from vit_search_torch.ops import kernels
-    from vit_search_torch.tools import gelu_delta, render_results, study_timing
-
-    proc, argv, t0 = started
-    out = os.path.join(root, "study")
-    try:
-        proc.wait(timeout=max(1.0, STUDY_TIMEOUT_S - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        end_session(proc)
-        raise AssertionError(f"study: not done in {STUDY_TIMEOUT_S} s")
-    wall_s = time.perf_counter() - t0
-    with open(os.path.join(root, "study_stdout.txt")) as f:
-        stdout = f.read()
-    if proc.returncode != 0:
-        raise AssertionError(f"study: exit {proc.returncode}; its output ends\n"
-                             f"{stdout[-4000:]}")
-    timing = study_timing.parse(stdout)
-    with open(os.path.join(out, "study_summary.json")) as f:
-        summary = json.load(f)
-    missing = [k for k in STUDY_KEYS if k not in summary]
-    if missing:
-        raise AssertionError(f"study: the summary lacks {missing}")
-    if summary["finetune_size"] != STUDY_FINETUNE_SIZE:
-        raise AssertionError(f"study: finetune at {summary['finetune_size']} px")
-    for tag in ("winner", "random"):
-        if not 0 < summary[f"{tag}_mac"] <= STUDY_BUDGET:
-            raise AssertionError(f"study: {tag} MACs {summary[f'{tag}_mac']} over "
-                                 f"the budget {STUDY_BUDGET:.0f}")
-    curves = {k: v for k, v in summary.items() if k.endswith("_curve")}
-    for name, curve in curves.items():
-        if not curve or not all(math.isfinite(e["train_loss"]) and 0.0 <= e["test_acc1"] <= 100.0
-                                for e in curve):
-            raise AssertionError(f"study: {name} {curve}")
-    markdown_path = os.path.join(out, "RESULTS.md")
-    with contextlib.redirect_stdout(sys.stderr):
-        render_results.main([os.path.join(out, "study_summary.json"), markdown_path])
-    with open(markdown_path) as f:
-        markdown = f.read()
-    absent = [h for h in STUDY_SECTIONS if h not in markdown]
-    if absent:
-        raise AssertionError(f"study: the rendered markdown lacks {absent}")
-
-    def_file = os.path.join(out, "winner_def.txt")
-    with open(def_file, "w") as f:
-        f.write(summary["winner_def"])
-    winner = parse_network_def(summary["winner_def"])
-    blocks = kernel_attention_blocks(winner, STUDY_SIZE)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):
-        gelu = gelu_delta.main([os.path.join(out, "retrain_winner"), os.path.join(out, "data"),
-                                def_file, str(STUDY_SIZE)])
-    gelu_s = time.perf_counter() - t0
-    counted = {k.name: k.launches for k in kernels.KERNELS}
-    launches = {name: counted.get(name, 0) for name in KERNEL_NAMES}
-    want = per_pass(attention_qkv_fwd=2 * blocks, layer_norm_fwd=2 * dense_lns(winner),
-                    batch_norm_apply=2 * stem_norms(winner))
-    if launches != want:
-        raise AssertionError(f"study: gelu_delta launches {launches}, expected {want} "
-                             f"(2 forwards x {blocks} attention blocks on the kernel and "
-                             f"{dense_lns(winner)} layer norms)")
-    if not all(math.isfinite(v) for v in gelu.values()):
-        raise AssertionError(f"study: gelu_delta {gelu}")
-    return {"argv": argv[1:], "wall_s": wall_s, "timing": timing, "summary": summary,
-            "markdown": markdown, "gelu_delta": gelu, "gelu_delta_s": gelu_s,
-            "winner_attention_blocks": nd.existing_depth(winner),
-            "kernel_attention_blocks": blocks, "launches": launches}
 
 
 def recipe_argv(script: str, data_path: str, workers: int):
@@ -2971,14 +1276,22 @@ def net_stages(network_def, img_size: int, patch_size: int = 14) -> list:
     return stages
 
 
+def recipe_net(script: str):
+    """``(network_def, input size, masked)`` of a recipe's net, from its own
+    arguments: masked (the masked layer norm) in a supernet or a search."""
+    from vit_search_torch.arch import parse_network_def
+
+    cli, argv = recipe_argv(script, "", 1)
+    net = parse_network_def(argv[argv.index("--network-def") + 1])
+    size = int(argv[argv.index("--input-size") + 1]) if "--input-size" in argv else 224
+    return net, size, cli == "evo_search" or argv[argv.index("--model") + 1].endswith(
+        "_supernet")
+
+
 def recipe_stages(script: str):
     """``[(N, C, heads, head_dim)]`` of each stage of a recipe's net at its
     input size, from its network_def (``net_stages``)."""
-    from vit_search_torch.arch import parse_network_def
-
-    _, argv = recipe_argv(script, "", 1)
-    net = parse_network_def(argv[argv.index("--network-def") + 1])
-    size = int(argv[argv.index("--input-size") + 1]) if "--input-size" in argv else 224
+    net, size, _ = recipe_net(script)
     return [(st["N"], st["C"], st["H"], st["D"]) for st in net_stages(net, size)]
 
 
@@ -3217,25 +1530,21 @@ def check_recipe_kernels(reps: int, routes: dict):
     """K1/K2 (bf16) against their plain versions at the widest heads of each
     stage of ``RECIPE_KERNEL_SCRIPTS``' nets, at each script's batch, with
     K2's route by kernel name from ``routes`` (``recipe_k2_routes``); K3/K4
-    at each stage width of the supernets among them. Path ``recipes``; each
-    entry names its script."""
+    at each stage width of the supernets among them. Each row names its
+    script as its net."""
     entries = []
     for label, script in RECIPE_KERNEL_SCRIPTS:
         _, argv = recipe_argv(script, "", 1)
         batch = int(argv[argv.index("--batch-size") + 1])
-        supernet = argv[argv.index("--model") + 1].endswith("_supernet")
         for i, (n, c, h, d) in enumerate(recipe_stages(script)):
             stage = f"{label} stage {i + 1}"
-            for e in check_attention(stage, reps, batch, "recipes", backward=True,
-                                     nhd=(n, h, d)):
-                e["recipe"] = script
+            rows = check_attention(stage, reps, batch, n, h, d, "packed")
+            for e in rows:
                 if e["name"] == "attention_qkv_bwd":
                     e.update(routes[f"{n},{h},{d}"])
-                entries.append(e)
-            if supernet:
-                for e in check_masked_ln(i, reps, batch, "recipes", backward=True, nc=(n, c)):
-                    e.update(recipe=script, stage=stage)
-                    entries.append(e)
+            if recipe_net(script)[2]:
+                rows += check_masked_ln(stage, reps, batch, n, c, True)
+            entries += [dict(e, net=script) for e in rows]
     return entries
 
 
@@ -3264,137 +1573,179 @@ def window_work(bw: int, n: int, h: int, d: int, backward: bool):
     return 2.0 * bw * n * 4 * w + table, 4.0 * bw * h * n * n * d
 
 
-def check_window_attention(reps: int):
-    """The windowed cosine attention (SwinV2) at SwinV2-B's stage shapes:
-    out, dqkv, the scale's and the bias's gradients against
-    ``window_attention_plain`` with q' and k' rounded as the kernels round them
-    (``BF16_TOL``), one counted launch of each record per autograd call,
-    and each direction timed beside its bound, the plain version and SDPA
-    with a float ``attn_mask`` (the bias plus the shift mask)."""
+def check_window_attention(label: str, reps: int, bw: int, n: int, h: int, shift: int,
+                           r: int):
+    """The windowed cosine attention (SwinV2) at a SwinV2-B stage shape
+    (``bw`` windows of ``n`` tokens, ``h`` heads of 32, the shift and the
+    stage's resolution ``r``): out, dqkv, the scale's and the bias's
+    gradients against ``window_attention_plain`` with q' and k' rounded as
+    the kernels round them (``BF16_TOL``), one counted launch of each record
+    per autograd call, and each direction timed beside its bound, the plain
+    version and SDPA with a float ``attn_mask`` (the bias plus the shift
+    mask)."""
     import torch
     import torch.nn.functional as F
     from vit_search_torch.ops import window_attention as W
 
-    entries = []
-    for i, (bw, n, h, shift, r) in enumerate(SWIN_STAGES):
-        qkv, g, scale, bias, regions = window_inputs(bw, n, h, shift, r, 17 + i)
-        label = f"SwinV2-B stage {1 + [64, 32, 16, 8].index(r)}" + (" shifted" if shift else "")
-        shape = {"B": bw, "N": n, "H": h, "D": 32, "shift": shift, "dtype": "bfloat16"}
-        leaves = [qkv.clone().requires_grad_(), scale.clone().requires_grad_(),
+    qkv, g, scale, bias, regions = window_inputs(bw, n, h, shift, r, n + h + shift)
+    shape = {"B": bw, "N": n, "H": h, "D": 32, "shift": shift, "dtype": "bfloat16"}
+    leaves = [qkv.clone().requires_grad_(), scale.clone().requires_grad_(),
+              bias.clone().requires_grad_()]
+    before = (W.WA_FWD.launches, W.WA_BWD.launches)
+    out = W.window_attention(leaves[0], leaves[1], leaves[2], regions, h)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    if (W.WA_FWD.launches, W.WA_BWD.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"window attention {label}: launches not counted once")
+    ref_leaves = [qkv.float().requires_grad_(), scale.clone().requires_grad_(),
                   bias.clone().requires_grad_()]
-        before = (W.WA_FWD.launches, W.WA_BWD.launches)
-        out = W.window_attention(leaves[0], leaves[1], leaves[2], regions, h)
-        grads = torch.autograd.grad(out, leaves, g)
-        torch.cuda.synchronize()
-        if (W.WA_FWD.launches, W.WA_BWD.launches) != (before[0] + 1, before[1] + 1):
-            raise AssertionError(f"window attention {label}: launches not counted once")
-        ref_leaves = [qkv.float().requires_grad_(), scale.clone().requires_grad_(),
-                      bias.clone().requires_grad_()]
-        ref = W.window_attention_plain(*ref_leaves, regions, h, rounded=True)
-        ref_grads = torch.autograd.grad(ref, ref_leaves, g.float())
-        err_fwd = compare(f"window attention forward {label}", out, ref, BF16_TOL)
-        err_bwd = max(compare(f"window attention backward {label} ({what})", a, b, BF16_TOL)
-                      for what, a, b in zip(("dqkv", "dscale", "dbias"), grads, ref_grads))
-        del out, grads, ref, ref_grads, ref_leaves, leaves
-        _, qkvn, rn = W.window_attention_fwd_cuda(qkv, scale, bias, regions, h)
-        fwd_ms = graph_ms(W.window_attention_fwd_cuda, (qkv, scale, bias, regions, h), reps)
-        bwd_ms = graph_ms(W.window_attention_bwd_cuda, (qkvn, rn, scale, bias, regions, g, h),
+    ref = W.window_attention_plain(*ref_leaves, regions, h, rounded=True)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, g.float())
+    err_fwd = compare(f"window attention forward {label}", out, ref, BF16_TOL)
+    err_bwd = max(compare(f"window attention backward {label} ({what})", a, b, BF16_TOL)
+                  for what, a, b in zip(("dqkv", "dscale", "dbias"), grads, ref_grads))
+    del out, grads, ref, ref_grads, ref_leaves, leaves
+    _, qkvn, rn = W.window_attention_fwd_cuda(qkv, scale, bias, regions, h)
+    fwd_ms = graph_ms(W.window_attention_fwd_cuda, (qkv, scale, bias, regions, h), reps)
+    bwd_ms = graph_ms(W.window_attention_bwd_cuda, (qkvn, rn, scale, bias, regions, g, h),
+                      reps)
+    fwd_call_ms = time_ms(lambda: W.window_attention_fwd_cuda(qkv, scale, bias, regions, h),
                           reps)
-        fwd_call_ms = time_ms(lambda: W.window_attention_fwd_cuda(qkv, scale, bias, regions, h),
-                              reps)
-        bwd_call_ms = time_ms(lambda: W.window_attention_bwd_cuda(qkvn, rn, scale, bias, regions,
-                                                                  g, h), reps)
-        pleaves = [qkv.float().requires_grad_(), scale.clone().requires_grad_(),
-                   bias.clone().requires_grad_()]
-        plain_fwd_ms = time_ms(lambda: W.window_attention_plain(qkv, scale, bias, regions, h),
-                               reps)
-        plain_all_ms = time_ms(lambda: torch.autograd.grad(
-            W.window_attention_plain(*pleaves, regions, h), pleaves, g.float()), reps)
-        # SDPA over q' and k' with the bias and shift mask as a float mask
-        q, k, v = qkv.view(bw, n, 3, h, 32).permute(2, 0, 3, 1, 4)
-        mask = bias.bfloat16().expand(bw, h, n, n)
-        if regions is not None:
-            mask = (bias[None] + W.region_mask(regions)[:, None]).bfloat16().repeat(
-                bw // regions.shape[0], 1, 1, 1)
-        sq = (F.normalize(q.float(), dim=-1) * scale.view(1, h, 1, 1)).bfloat16()
-        sk = F.normalize(k.float(), dim=-1).bfloat16()
-        sl = [t.detach().clone().requires_grad_() for t in (sq, sk, v)]
+    bwd_call_ms = time_ms(lambda: W.window_attention_bwd_cuda(qkvn, rn, scale, bias, regions,
+                                                              g, h), reps)
+    pleaves = [qkv.float().requires_grad_(), scale.clone().requires_grad_(),
+               bias.clone().requires_grad_()]
+    plain_fwd_ms = time_ms(lambda: W.window_attention_plain(qkv, scale, bias, regions, h),
+                           reps)
+    plain_all_ms = time_ms(lambda: torch.autograd.grad(
+        W.window_attention_plain(*pleaves, regions, h), pleaves, g.float()), reps)
+    # SDPA over q' and k' with the bias and shift mask as a float mask
+    q, k, v = qkv.view(bw, n, 3, h, 32).permute(2, 0, 3, 1, 4)
+    mask = bias.bfloat16().expand(bw, h, n, n)
+    if regions is not None:
+        mask = (bias[None] + W.region_mask(regions)[:, None]).bfloat16().repeat(
+            bw // regions.shape[0], 1, 1, 1)
+    sq = (F.normalize(q.float(), dim=-1) * scale.view(1, h, 1, 1)).bfloat16()
+    sk = F.normalize(k.float(), dim=-1).bfloat16()
+    sl = [t.detach().clone().requires_grad_() for t in (sq, sk, v)]
 
-        def sdpa():
-            return F.scaled_dot_product_attention(*sl, attn_mask=mask, scale=1.0)
+    def sdpa():
+        return F.scaled_dot_product_attention(*sl, attn_mask=mask, scale=1.0)
 
-        with torch.no_grad():
-            lib_fwd_ms = time_ms(sdpa, reps)
-        g_view = g.view(bw, n, h, 32).transpose(1, 2)
-        lib_all_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sl, g_view), reps)
-        bf = bound(*window_work(bw, n, h, 32, False), PEAK_BF16)
-        bb = bound(*window_work(bw, n, h, 32, True), PEAK_BF16)
-        tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
-        common = dict(stage=label, shape=shape, path="swin", tolerance=tolerance)
-        entries.append(dict(name="window_attention_fwd", **common, max_abs_err=err_fwd,
-                            ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms,
-                            bound_ms=bf[0], bound_by=bf[1], library_ms=lib_fwd_ms,
-                            library_call="F.scaled_dot_product_attention, float attn_mask"))
-        entries.append(dict(name="window_attention_bwd", **common, max_abs_err=err_bwd,
-                            ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_all_ms - plain_fwd_ms,
-                            bound_ms=bb[0], bound_by=bb[1], library_ms=lib_all_ms - lib_fwd_ms,
-                            library_call="F.scaled_dot_product_attention (forward+backward) "
-                                         "- forward, float attn_mask"))
-        log(f"window attention {label}: fwd {fwd_ms:.4f} ms (bound {bf[0]:.4f}, plain "
-            f"{plain_fwd_ms:.3f}, SDPA {lib_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (bound "
-            f"{bb[0]:.4f}, plain {plain_all_ms - plain_fwd_ms:.3f}, SDPA "
-            f"{lib_all_ms - lib_fwd_ms:.4f}); max abs err {err_fwd:.3e} / {err_bwd:.3e}")
-        del qkv, g, qkvn, rn, mask, sl, pleaves
-        torch.cuda.empty_cache()
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(sdpa, reps)
+    g_view = g.view(bw, n, h, 32).transpose(1, 2)
+    lib_all_ms = time_ms(lambda: torch.autograd.grad(sdpa(), sl, g_view), reps)
+    bf = bound(*window_work(bw, n, h, 32, False), PEAK_BF16)
+    bb = bound(*window_work(bw, n, h, 32, True), PEAK_BF16)
+    tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
+    common = dict(stage=label, shape=shape, tolerance=tolerance)
+    entries = [dict(name="window_attention_fwd", **common, max_abs_err=err_fwd,
+                    ms=fwd_ms, call_ms=fwd_call_ms, plain_ms=plain_fwd_ms,
+                    bound_ms=bf[0], bound_by=bf[1], library_ms=lib_fwd_ms,
+                    library_call="F.scaled_dot_product_attention, float attn_mask"),
+               dict(name="window_attention_bwd", **common, max_abs_err=err_bwd,
+                    ms=bwd_ms, call_ms=bwd_call_ms, plain_ms=plain_all_ms - plain_fwd_ms,
+                    bound_ms=bb[0], bound_by=bb[1], library_ms=lib_all_ms - lib_fwd_ms,
+                    library_call="F.scaled_dot_product_attention (forward+backward) "
+                                 "- forward, float attn_mask")]
+    log(f"window attention {label}: fwd {fwd_ms:.4f} ms (bound {bf[0]:.4f}, plain "
+        f"{plain_fwd_ms:.3f}, SDPA {lib_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (bound "
+        f"{bb[0]:.4f}, plain {plain_all_ms - plain_fwd_ms:.3f}, SDPA "
+        f"{lib_all_ms - lib_fwd_ms:.4f}); max abs err {err_fwd:.3e} / {err_bwd:.3e}")
+    del qkv, g, qkvn, rn, mask, sl, pleaves
+    torch.cuda.empty_cache()
     return entries
 
 
-def swin_phase(reps: int) -> dict:
-    """The windowed attention at SwinV2-B's stage shapes, then one
-    SwinV2-B step at 256 px and 256 images with the recipe's draws:
-    launches per step and its rate and peak."""
-    import torch
-    from vit_search_torch import models, train
-    from vit_search_torch.ops import kernels
+# The kernel table. ``check`` names a function of ``CHECKS``, called as
+# ``check(label, REPS, *shape)``; it compares its kernels with their plain
+# versions and returns one row for each of its kernels. ``net`` names the net
+# whose pass gives the shape (``row_launches``). ``group``: "kernels" runs in
+# the full run only, "stem" and "swin" also alone (``--phase``).
+Case = collections.namedtuple("Case", "group check label shape net")
 
-    entries = check_window_attention(reps)
-    model = models.create_model("swinv2_base_window16_256", dtype=torch.bfloat16,
-                                device="cuda")
-    ocfg = train.OptimConfig(base_lr=5e-4, min_lr=1e-5, warmup_lr=1e-6, warmup_epochs=20,
-                             epochs=300, clip_grad=5.0, global_batch_size=1024)
-    tcfg = train.TrainConfig(mixup_mode="mixup", erasing_prob=0.25)
-    step = train.make_train_step(model, train.make_optimizer(ocfg, model), tcfg,
-                                 schedule=train.lr_schedule(ocfg), device="cuda")
-    images, labels = synthetic_batch(256, 256, 0)
-    for _ in range(WARMUP):
-        step(images, labels)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        step(images, labels)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    per = {"window_attention_fwd": 24, "window_attention_bwd": 24,
-           "layer_norm_fwd": 53, "layer_norm_bwd": 53, "batch_norm_stats": 0,
-           "batch_norm_apply": 0, "batch_norm_bwd": 0}
-    check_launches(launches, per, STEPS, "SwinV2-B steps")
-    return {"entries": entries, "imgs_per_s": STEPS * 256 / seconds,
-            "step_ms": 1e3 * seconds / STEPS, "launches": launches, "per_step": per,
-            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+def cases() -> tuple:
+    """The table's cases, at the stages of their scripts' nets
+    (``recipe_stages``) and at the scripts' batches."""
+    tiny, searched = recipe_stages(TINY), recipe_stages(SEARCHED)
+    medium, f392 = recipe_stages(MEDIUM), recipe_stages(FINETUNE)
+    n392, _, h392, d392 = f392[0]
+    return (
+        # the Tiny supernet's stages: its train step, a scoring forward, and
+        # the kernels no model runs at the same shapes
+        *(case for i, (n, c, h, d) in enumerate(tiny) for case in (
+            Case("kernels", "attention", f"stage {i + 1}", (BATCH, n, h, d, "packed"), TINY),
+            Case("kernels", "attention", f"stage {i + 1}", (BATCH, n, h, d, "separate"), None),
+            Case("kernels", "attention", f"stage {i + 1}", (BATCH, n, h, d, "seq_major"), None),
+            Case("kernels", "lab", f"stage {i + 1}", (BATCH, n, h, d), None),
+            Case("kernels", "masked_ln", f"stage {i + 1}", (BATCH, n, c, True), TINY),
+            # K5 takes each masked layer norm's statistics on ln_route="stats"
+            Case("kernels", "row_stats", f"stage {i + 1}", (BATCH, n, c), TINY),
+            Case("kernels", "attention", f"stage {i + 1}",
+                 (SEARCH_BATCH, n, h, d, "packed", "bfloat16", False), TINY_SEARCH),
+            Case("kernels", "masked_ln", f"stage {i + 1}", (SEARCH_BATCH, n, c, False),
+                 TINY_SEARCH),
+            Case("kernels", "row_stats", f"stage {i + 1}", (SEARCH_BATCH, n, c), TINY_SEARCH))),
+        # past the supernet's shapes: the 392 px finetune's stage 1 (N = 785,
+        # where the bf16 backward takes the split route) in float32 and on
+        # the other two layouts, and a head dim of 24
+        Case("kernels", "attention", "392px stage 1",
+             (FINETUNE_BATCH, n392, h392, d392, "packed", "float32"), FINETUNE),
+        *(Case("kernels", "attention", "392px stage 1",
+               (FINETUNE_BATCH, n392, h392, d392, layout), None)
+          for layout in ("separate", "seq_major")),
+        Case("kernels", "attention", "head dim 24", (BATCH, 257, 8, 24, "packed"), None),
+        # the dense nets: the searched Tiny net, the 392 px finetune, DeiT-S
+        *(Case("kernels", "attention", f"searched stage {i + 1}", (BATCH, n, h, d, "packed"),
+               SEARCHED) for i, (n, _, h, d) in enumerate(searched)),
+        *(Case("kernels", "attention", f"392px stage {i + 1}",
+               (FINETUNE_BATCH, n, h, d, "packed"), FINETUNE)
+          for i, (n, _, h, d) in enumerate(f392)),
+        Case("kernels", "attention", "DeiT-S", (BATCH, 198, 6, 64, "packed"), "DeiT-S"),
+        *(Case("kernels", "layer_norm", f"Medium stage {i + 1}", (script_batch(MEDIUM), n, c),
+               MEDIUM) for i, (n, c, _, _) in enumerate(medium)),
+        *(Case("kernels", "layer_norm", f"392px stage {i + 1}", (script_batch(FINETUNE), n, c),
+               FINETUNE) for i, (n, c, _, _) in enumerate(f392)),
+        # the conv stem's batch norm with its ReLU at the cells' stem shapes,
+        # then the whole stem module
+        Case("stem", "stem_norm", "train 224px", (script_batch(TINY), 224, True), TINY),
+        Case("stem", "stem_norm", "train 392px", (script_batch(FINETUNE), 392, True), FINETUNE),
+        Case("stem", "stem_norm", "eval 224px", (SEARCH_BATCH, 224, False), TINY_SEARCH),
+        Case("stem", "stem_module", "train 224px", (script_batch(TINY), 224), TINY),
+        # SwinV2-B's windowed attention
+        *(Case("swin", "window_attention",
+               f"SwinV2-B stage {1 + [64, 32, 16, 8].index(r)}" + (" shifted" if shift else ""),
+               (bw, n, h, shift, r), "SwinV2-B") for bw, n, h, shift, r in SWIN_STAGES),
+    )
+
+
+# the function of each case's ``check`` (``cases``)
+CHECKS = {"attention": check_attention, "masked_ln": check_masked_ln,
+          "row_stats": check_row_stats, "lab": check_lab, "layer_norm": check_layer_norm,
+          "stem_norm": check_stem_norm, "stem_module": stem_module,
+          "window_attention": check_window_attention}
+
+
+def row_launches(row: dict, scripts: dict):
+    """A row's kernel launches as the recipes phase counted them in the run
+    of the row's net (``scripts``: its runs by script), with that run's
+    train steps and eval or scoring forwards; None where no run of this
+    process counted them."""
+    run = scripts.get(row["net"])
+    if run is None or row["name"] not in run["launches"]:
+        return None
+    return {"count": run["launches"][row["name"]], "steps": run["steps"],
+            "forwards": run["forwards"]}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
     parser.add_argument("--phase", choices=("all", "swin", "stem"), default="all",
-                        help="every phase, or only the SwinV2 or the conv stem's batch norm "
-                             "phase (after the build)")
-    parser.add_argument("--dist-worker", nargs=4, default=None,
-                        metavar=("RANK", "WORLD", "STORE", "OUT"),
-                        help="run one rank of the dist phase (the script starts these)")
+                        help="the whole table and the recipes, or only the table's SwinV2 or "
+                             "conv stem cases (after the build)")
     args = parser.parse_args(argv)
 
     import torch
@@ -3402,16 +1753,9 @@ def main(argv=None) -> int:
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
     sys.path.insert(0, HERE)
-    if args.dist_worker:
-        rank, world, store, out = args.dist_worker
-        return dist_worker(int(rank), int(world), store, out)
     from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
     from vit_search_torch.ops import batch_norm, window_attention  # noqa: F401
     from vit_search_torch.tools import attn_lab  # noqa: F401
-
-    if sorted(KERNEL_NAMES) != sorted(k.name for k in kernels.KERNELS):
-        raise AssertionError(f"launch tables name {sorted(KERNEL_NAMES)}, the port registers "
-                             f"{sorted(k.name for k in kernels.KERNELS)}")
 
     card = card_line()
     print(card, flush=True)
@@ -3430,289 +1774,78 @@ def main(argv=None) -> int:
         f"{r['kernel']} {r['registers']} regs, spills {r['spill_stores']}/{r['spill_loads']} B"
         for r in regs))
 
-    if args.phase == "swin":
-        report["swin"] = sw = swin_phase(REPS)
-        print(f"swin: SwinV2-B step {sw['imgs_per_s']:.1f} imgs/s ({sw['step_ms']:.1f} ms/step, "
-              f"batch 256 at 256 px) peak memory "
-              f"{sw['max_memory_allocated_bytes'] / 2**30:.2f} GiB on {card}; launches a step "
-              f"{json.dumps(sw['per_step'])}", flush=True)
-        print(json.dumps({"kernels": sw["entries"]}), flush=True)
-        if args.out:
-            os.makedirs(args.out, exist_ok=True)
-            with open(os.path.join(args.out, "chip_smoke_swin.json"), "w") as f:
-                json.dump(report, f, indent=1)
-        return 0
+    if args.phase == "all":
+        # K2's routes at the recipes' shapes by kernel name, in the process's
+        # first profiler session
+        report["recipe_k2_routes"] = k2_routes = recipe_k2_routes()
+        log(f"K2's routes at the recipes' shapes by kernel name: {k2_routes}")
+        # the recipes' image folder, made on the host while the card runs the
+        # table
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+        folder = os.path.join(scratch, "synthfolder")
+        maker, folder_s = start_folder(folder)
+        atexit.register(stop, maker, scratch)
 
-    if args.phase == "stem":
-        report["stem"] = st = stem_phase(REPS)
-        print(f"stem: batch norm launches a train pass "
-              f"{json.dumps(st['module']['train_launches'])}, an eval forward "
-              f"{json.dumps(st['module']['eval_launches'])} on {card}", flush=True)
-        print(json.dumps({"kernels": st["entries"]}), flush=True)
-        if args.out:
-            os.makedirs(args.out, exist_ok=True)
-            with open(os.path.join(args.out, "chip_smoke_stem.json"), "w") as f:
-                json.dump(report, f, indent=1)
-        return 0
-
-    # K2's routes at the recipes' shapes by kernel name, in the process's
-    # first profiler session
-    report["recipe_k2_routes"] = k2_routes = recipe_k2_routes()
-    log(f"K2's routes at the recipes' shapes by kernel name: {k2_routes}")
-
-    # the image folder of the loader, cli, dist, study and recipes phases,
-    # made on the host while the card runs the kernel checks
-    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
-    folder = os.path.join(scratch, "synthfolder")
-    maker, folder_s = start_folder(folder)
-    atexit.register(stop, maker, scratch)
-
-    entries = []
-    for stage in range(len(STAGES)):
-        entries += check_kernels(stage, REPS)
-        log(f"stage {stage + 1} kernels agree with their plain versions at B = {BATCH} "
-            f"and B = {SEARCH_BATCH}")
-    entries += check_extra_shapes(REPS)
-    log("the attention kernels agree with their plain versions at the 392 px finetune's "
-        "stage 1 and at head dim 24")
-    entries += check_dense_shapes(REPS)
-    log("K1/K2 agree with their plain versions at the searched Tiny net's and the 392 px "
-        "finetune's stage shapes")
-    for i, (n, c) in enumerate(MEDIUM_STAGES):
-        entries += check_layer_norm(f"Medium stage {i + 1}", n, c, REPS, MEDIUM_BATCH, "medium")
-    for i, (n, c) in enumerate(MEDIUM_392_STAGES):
-        entries += check_layer_norm(f"392px stage {i + 1}", n, c, REPS, MEDIUM_392_BATCH,
-                                    "finetune")
-    log(f"K3/K4's dense mode agrees with the plain dense layer norm at ViT-ResNAS-Medium's "
-        f"stage shapes, B = {MEDIUM_BATCH} at 224 px and B = {MEDIUM_392_BATCH} at 392 px")
-    report["stem"] = st = stem_phase(REPS)
-    entries += st["entries"]
-    for stage in range(len(STAGES)):
-        entries += (check_attention(stage, REPS, DIST_BATCH, "dist", backward=True)
-                    + check_masked_ln(stage, REPS, DIST_BATCH, "dist", backward=True))
-    log(f"K1-K4 agree with their plain versions at a rank's {DIST_BATCH} rows")
-    for ln_route in ("fused", "stats"):
-        report[f"reference_net_{ln_route}"] = errs = check_reference_net(ln_route)
-        log(f"reference net, ln_route={ln_route}: card vs CPU {errs}")
-    report["reference_net_bf16"] = errs = check_reference_net("fused", torch.bfloat16)
-    print(f"reference net, bfloat16, ln_route=fused: card vs CPU {json.dumps(errs)} "
-          f"(tolerance {json.dumps(REF_NET_BF16_TOL)})", flush=True)
-    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
-        report[f"reference_net_dense_{name}"] = errs = check_reference_net(
-            "fused", dtype, dense=True)
-        print(f"reference net, dense, erasing + clipping + EMA, {name}: card vs CPU "
-              f"{json.dumps(errs)}", flush=True)
-    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
-        report[f"reference_net_distill_{name}"] = errs = check_reference_net(
-            "fused", dtype, distill=True)
-        print(f"reference net, distill token, mixup + dropout + KD, {name}: card vs CPU "
-              f"{json.dumps(errs)}", flush=True)
-
-    report["ops"] = ops = ops_path()
-    log(f"op-level API: {ops['passes']} passes, launches K6/K7 "
-        f"{ops['launches']['attention_fwd']}/{ops['launches']['attention_bwd']}, K8/K9 "
-        f"{ops['launches']['attention_qkv_t_fwd']}/{ops['launches']['attention_qkv_t_bwd']}")
-    report["shapes"] = shapes = shapes_path()
-    log(f"extra shapes: {len(EXTRA_CALLS)} calls, launches K1/K2 "
-        f"{shapes['launches']['attention_qkv_fwd']}/{shapes['launches']['attention_qkv_bwd']}, "
-        f"K6/K7 {shapes['launches']['attention_fwd']}/{shapes['launches']['attention_bwd']}, "
-        f"K8/K9 {shapes['launches']['attention_qkv_t_fwd']}/"
-        f"{shapes['launches']['attention_qkv_t_bwd']}")
-
-    report["swin"] = sw = swin_phase(REPS)
-    entries += sw["entries"]
-    print(f"swin: SwinV2-B step {sw['imgs_per_s']:.1f} imgs/s ({sw['step_ms']:.1f} ms/step, "
-          f"batch 256 at 256 px) peak memory {sw['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
-          f"on {card}", flush=True)
-    torch.cuda.empty_cache()
-
+    entries, scripts = [], {}
     t0 = time.perf_counter()
-    maker.join()
-    if maker.exitcode != 0:
-        raise AssertionError(f"make_folder: exit {maker.exitcode}")
-    report["folder_s"], report["folder_wait_s"] = folder_s.value, time.perf_counter() - t0
-    log(f"folder made in {folder_s.value:.1f} s beside the kernel checks; waited "
-        f"{report['folder_wait_s']:.1f} s for it")
-    report["train"] = tr = train(STEPS, WARMUP)
-    print(f"train: {tr['imgs_per_s']:.1f} imgs/s ({tr['step_ms']:.1f} ms/step, batch "
-          f"{BATCH}) peak memory {tr['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
-          f"on {card}", flush=True)
-    t0 = time.perf_counter()
-    report["searched"] = se = searched(STEPS, WARMUP)
-    se["seconds"] = time.perf_counter() - t0
-    print(f"searched: {se['imgs_per_s']:.1f} imgs/s ({se['step_ms']:.1f} ms/step, batch "
-          f"{se['batch']}) peak memory {se['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
-          f"on {card}", flush=True)
-    t0 = time.perf_counter()
-    report["finetune"] = ft = finetune(STEPS, WARMUP)
-    ft["seconds"] = time.perf_counter() - t0
-    routes = ", ".join(f"stage {i + 1} (N {st['N']}, D {st['D']}) {st['route']}"
-                       for i, st in enumerate(ft["k2_routes"]))
-    print(f"finetune 392px: {ft['imgs_per_s']:.1f} imgs/s ({ft['step_ms']:.1f} ms/step, "
-          f"batch {ft['batch']}) peak memory {ft['max_memory_allocated_bytes'] / 2**30:.2f} "
-          f"GiB on {card}; K2 {routes}", flush=True)
-    t0 = time.perf_counter()
-    report["mixup"] = mx = mixup(STEPS, WARMUP)
-    mx["seconds"] = time.perf_counter() - t0
-    print(f"mixup: {mx['imgs_per_s']:.1f} imgs/s ({mx['step_ms']:.1f} ms/step, batch "
-          f"{mx['batch']}) peak memory {mx['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
-          f"on {card}", flush=True)
-    t0 = time.perf_counter()
-    report["distill"] = ds = distill(STEPS, WARMUP)
-    ds["seconds"] = time.perf_counter() - t0
-    print(f"distill: {ds['imgs_per_s']:.1f} imgs/s ({ds['step_ms']:.1f} ms/step, batch "
-          f"{ds['batch']}) peak memory {ds['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
-          f"on {card}; teacher forward {ds['teacher_ms']:.1f} ms per step "
-          f"({100 * ds['teacher_share']:.1f}% of the step)", flush=True)
-    # the host pipeline and the training CLI on a synthetic image folder, which
-    # the dist phase's cli.launch run reads too
-    try:
-        t0 = time.perf_counter()
-        report["loader"] = ld = loader(folder)
-        ld["seconds"] = time.perf_counter() - t0
-        prof = ld["profiled_step"]
-        print(f"loader: {ld['loader_imgs_per_s']:.1f} imgs/s alone over an epoch of "
-              f"{ld['batches_per_epoch']} batches (process backend, {ld['host_cores']} "
-              f"workers, the first batch after {ld['loader_first_batch_s']:.2f} s; "
-              f"os.cpu_count() {ld['host_cpu_count']}, sched_getaffinity "
-              f"{ld['host_cores']}; thread backend "
-              f"{ld['loader_thread_backend_imgs_per_s']:.1f}); loader-fed train step "
-              f"{ld['step_imgs_per_s']:.1f} imgs/s over an epoch of {ld['steps']} steps "
-              f"({ld['step_ms']:.1f} ms/step, batch {BATCH}) beside "
-              f"{tr['imgs_per_s']:.1f} from device batches; profiled step "
-              f"{prof['device_busy_ms']:.1f} ms busy of {prof['wall_ms']:.1f} ms "
-              f"({100 * prof['idle_share']:.1f}% idle) on {card}", flush=True)
-        t0 = time.perf_counter()
-        report["cli"] = cl = cli(folder, scratch)
-        cl["wall_s"] = time.perf_counter() - t0
-        print(f"cli: super_net/tiny.sh, {cl['train_steps']} steps over {CLI_EPOCHS} epochs "
-              f"(SIGTERM in epoch 1, then --resume auto), epoch imgs/s "
-              + " / ".join(f"{v:.1f}" for v in cl["epoch_imgs_per_s"])
-              + f", --eval acc1 {cl['eval']['acc1']:.3f} on {card}", flush=True)
-        log(f"searched phase {se['seconds']:.1f} s, finetune phase {ft['seconds']:.1f} s, "
-            f"mixup phase {mx['seconds']:.1f} s, distill phase {ds['seconds']:.1f} s, "
-            f"folder {report['folder_s']:.1f} s, loader phase {ld['seconds']:.1f} s, "
-            f"cli phase {cl['wall_s']:.1f} s")
-        # the search on each masked-LN route, one model on the card at a time;
-        # one chunk's logits must agree across the routes
-        searches, logits = {}, {}
-        for ln_route in ("stats", "fused"):
-            searches[ln_route], logits[ln_route] = search(ln_route, card)
-        report["search"] = searches
-        report["search_logits_stats_vs_fused_max_abs_err"] = compare(
-            "search logits, stats vs fused route", logits["stats"], logits["fused"], BF16_TOL)
-        del logits
-        torch.cuda.empty_cache()   # the card's memory to the dist phase's processes
-        t0 = time.perf_counter()
-        report["dist"] = dt = dist(folder, scratch, searches["fused"])
-        dt["seconds"] = time.perf_counter() - t0
-        comm = dt["ranks"][0]["collectives"]
-        print(f"dist: {DIST_PROCS} processes time-sharing 1 card over gloo, "
-              f"{dt['two_process_imgs_per_s']:.1f} imgs/s in step {DIST_STEPS} of a global "
-              f"batch {BATCH} ({DIST_BATCH} rows per rank); losses "
-              + " / ".join(f"{v:.6f}" for v in dt["ranks"][0]["losses"]) + " vs one process "
-              + " / ".join(f"{v:.6f}" for v in dt["one_process"]["losses"])
-              + f"; scores equal to one process over {POPULATION} candidates; rank 0 gather "
-              f"{comm['gather_ms']:.1f} ms ({comm['gather_bytes'] / 2**20:.1f} MiB), gradient "
-              f"all-reduce {comm['grad_all_reduce_ms']:.1f} ms "
-              f"({comm['grad_bytes'] / 2**20:.1f} MiB); cli.launch on NCCL (WORLD_SIZE=1) "
-              f"{LAUNCH_STEPS} steps in {dt['launch']['seconds']:.1f} s; phase "
-              f"{dt['seconds']:.1f} s on {card}", flush=True)
-        torch.cuda.empty_cache()   # the card's memory to the study's and recipes' runs
-        # the study's processes run beside the recipes phase: both wait on the
-        # host's decode most of the time, and the card holds both
-        started = start_study(scratch)
-        try:
-            report["recipes"] = rc = recipes(folder, scratch)
-            report["study"] = st = study(scratch, started)
-        finally:
-            end_session(started[0])
-        sm, stages, gd = st["summary"], st["timing"]["stages"], st["gelu_delta"]
-        print(f"study: accuracy_study at {STUDY_SIZE} px beside the recipes phase, done "
-              f"{st['wall_s']:.1f} s after its start ("
-              + ", ".join(f"{x['stage']} {x['seconds']} s" for x in stages)
-              + f"); winner {sm['winner_mac'] / 1e6:.1f}M MACs acc1 "
-              f"{sm['winner_final_acc1']:.2f}, random {sm['random_mac'] / 1e6:.1f}M acc1 "
-              f"{sm['random_final_acc1']:.2f} (budget {STUDY_BUDGET / 1e6:.1f}M); "
-              f"{STUDY_FINETUNE_SIZE} px finetune acc1 "
-              f"{sm['finetune_curve'][-1]['test_acc1']:.2f}; gelu_delta max |dlogit| "
-              f"{gd['max_abs_dlogit']:.4f}, top-1 agreement {gd['top1_agreement']:.2f}%, K1 "
-              f"{st['launches']['attention_qkv_fwd']} launches (2 x "
-              f"{st['kernel_attention_blocks']} of the winner's "
-              f"{st['winner_attention_blocks']} attention blocks, those at N >= 8) "
-              f"on {card}", flush=True)
-        slowest = max(rc["scripts"].items(), key=lambda kv: kv[1]["peak_bytes"])
-        print(f"recipes: {len(rc['scripts'])} published scripts chained through the port's "
-              f"CLIs in {rc['seconds']:.1f} s, each at its own batch"
-              + "".join(f", {s} at {b} (cut)" for s, b in RECIPE_BATCH_CUTS.items())
-              + f"; the largest peak {slowest[1]['peak_bytes'] / 2**30:.2f} GiB "
-              f"({slowest[0]}) on {card}", flush=True)
-    finally:
-        stop(maker, scratch)
-    # the kernels at the recipes' shapes, and one profiled step of the Small
-    # supernet from device batches
-    t0 = time.perf_counter()
-    entries += check_recipe_kernels(REPS, k2_routes)
-    log(f"K1-K4 agree with their plain versions at the recipes' shapes "
+    for case in cases():
+        if args.phase in ("all", case.group):
+            entries += [dict(e, net=case.net)
+                        for e in CHECKS[case.check](case.label, REPS, *case.shape)]
+    log(f"{len(entries)} rows of the table agree with their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    report["recipe_profile"] = pr = recipe_profile(RECIPE_KERNEL_SCRIPTS[0][1], 2, 1)
-    prof = pr["profiled_step"]
-    print(f"{RECIPE_KERNEL_SCRIPTS[0][1]} step from device batches: {pr['imgs_per_s']:.1f} "
-          f"imgs/s ({pr['step_ms']:.1f} ms/step, batch {pr['batch']}) peak memory "
-          f"{pr['max_memory_allocated_bytes'] / 2**30:.2f} GiB; profiled step "
-          f"{prof['device_busy_ms']:.1f} ms busy of {prof['wall_ms']:.1f} ms on {card}",
-          flush=True)
-    # the lab last: its full-width plain comparisons stay off the train and
-    # search lines
-    report["lab"] = lab = lab_path()
-    ms = {r["name"]: (r["ms"], rs["ms"]) for r, rs in zip(lab["main"], lab["main_split"])}
-    log(f"lab: {len(lab['shapes'])} shapes in {lab['seconds']:.1f} s, launches K10/K11/K12a/"
-        f"K12b {lab['launches']['lab_fwd_t']}/{lab['launches']['lab_bwd_t']}/"
-        f"{lab['launches']['lab_split_dq']}/{lab['launches']['lab_split_dkv']}; ms per call "
-        + "; ".join(f"{name}: bwd base {a['bwd base']:.3f} T {a['bwd T']:.3f} split "
-                    f"{b['split']:.3f}, fwd base {a['fwd base']:.3f} T {a['fwd T']:.3f}"
-                    for name, (a, b) in ms.items()))
 
-    k4_launches(entries, REPS)
-    # each kernel entry reports the launches of the path that gives it its shape
-    runs = {"train": (tr, PER_STEP),
-            "searched": (se, PER_SEARCHED_STEP),
-            "finetune": (ft, PER_FINETUNE_STEP),
-            # the Medium net's layer norms: the finetune phase trains it
-            "medium": (ft, PER_FINETUNE_STEP),
-            "distill": (ds, ds["per_step"]),
-            "ops": (ops, PER_OPS_PASS),
-            "shapes": (shapes, PER_SHAPES_CALL),
-            "lab": (lab, PER_LAB_SHAPE),
-            "search": (searches["stats"], PER_FORWARD["stats"]),
-            "search_fused": (searches["fused"], PER_FORWARD["fused"]),
-            "dist": (dt, PER_STEP),
-            "swin": (sw, sw["per_step"])}
+    if args.phase == "all":
+        try:
+            t0 = time.perf_counter()
+            maker.join()
+            if maker.exitcode != 0:
+                raise AssertionError(f"make_folder: exit {maker.exitcode}")
+            report["folder_s"], report["folder_wait_s"] = (folder_s.value,
+                                                           time.perf_counter() - t0)
+            log(f"folder made in {folder_s.value:.1f} s beside the table; waited "
+                f"{report['folder_wait_s']:.1f} s for it")
+            torch.cuda.empty_cache()   # the card's memory to the recipes' runs
+            report["recipes"] = rc = recipes(folder, scratch)
+            scripts = rc["scripts"]
+            slowest = max(rc["scripts"].items(), key=lambda kv: kv[1]["peak_bytes"])
+            print(f"recipes: {len(rc['scripts'])} published scripts chained through the "
+                  f"port's CLIs in {rc['seconds']:.1f} s, each at its own batch"
+                  + "".join(f", {s} at {b} (cut)" for s, b in RECIPE_BATCH_CUTS.items())
+                  + f"; the largest peak {slowest[1]['peak_bytes'] / 2**30:.2f} GiB "
+                  f"({slowest[0]}) on {card}", flush=True)
+        finally:
+            stop(maker, scratch)
+        # the kernels at the recipes' shapes, and one profiled step of the
+        # Small supernet from device batches
+        t0 = time.perf_counter()
+        entries += check_recipe_kernels(REPS, k2_routes)
+        log(f"K1-K4 agree with their plain versions at the recipes' shapes "
+            f"({time.perf_counter() - t0:.1f} s)")
+        report["recipe_profile"] = pr = recipe_profile(RECIPE_KERNEL_SCRIPTS[0][1], 2, 1)
+        prof = pr["profiled_step"]
+        print(f"{RECIPE_KERNEL_SCRIPTS[0][1]} step from device batches: "
+              f"{pr['imgs_per_s']:.1f} imgs/s ({pr['step_ms']:.1f} ms/step, batch "
+              f"{pr['batch']}) peak memory {pr['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+              f"profiled step {prof['device_busy_ms']:.1f} ms busy of {prof['wall_ms']:.1f} ms "
+              f"on {card}", flush=True)
+        k4_launches(entries, REPS)
+
     by_name = {k.name: k for k in kernels.KERNELS}
     for e in entries:
-        k = by_name[e["name"]]
-        if e["path"] == "recipes":
-            run = rc["scripts"][e["recipe"]]
-            per = run["per_step"]
-        else:
-            run, per = runs[e["path"]]
-        e.update(route="cuda", source=k.source, replaces=k.replaces, batch=e["shape"]["B"],
-                 launches=run["launches"][e["name"]], launches_per_step=per[e["name"]],
-                 kernel_ms=e["ms"])
+        if e["name"] in by_name:
+            e.update(source=by_name[e["name"]].source, replaces=by_name[e["name"]].replaces)
+        e.update(batch=e["shape"]["B"], launches=row_launches(e, scripts))
     report["kernels"] = entries
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+        name = "chip_smoke.json" if args.phase == "all" else f"chip_smoke_{args.phase}.json"
+        with open(os.path.join(args.out, name), "w") as f:
             json.dump(report, f, indent=1)
-        with open(os.path.join(args.out, "study_summary.json"), "w") as f:
-            json.dump(report["study"]["summary"], f, indent=1)
-        with open(os.path.join(args.out, "study_RESULTS.md"), "w") as f:
-            f.write(report["study"]["markdown"])
-    keys = ("name", "stage", "batch", "route", "source", "replaces", "path", "launches",
-            "launches_per_step",
-            "max_abs_err", "tolerance", "ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    # the lab's entries also carry their error against K1's / K2's plain function
+    keys = ("name", "stage", "batch", "source", "replaces", "net", "launches",
+            "max_abs_err", "tolerance", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    # the lab's rows also carry their error against K1's / K2's plain function
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
                                    **({"err_vs_base": e["err_vs_base"]}
                                       if "err_vs_base" in e else {})} for e in entries]}),

@@ -136,12 +136,3 @@ def test_net_at_head_dim_24_matches_jax():
         g = want[name]
         np.testing.assert_allclose(p.grad.numpy(), g, rtol=1e-4,
                                    atol=1e-5 * np.abs(g).max() + 1e-9, err_msg=name)
-
-
-def test_attn_check_needs_cuda(monkeypatch):
-    """The checkout fingerprint runs on the card and nowhere else."""
-    from vit_search_torch.tools import attn_check
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        attn_check.main()

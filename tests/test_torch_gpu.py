@@ -2,18 +2,29 @@
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the device and skips
 when there is none. Shapes are main-path-like (the three ViT-ResNAS-Tiny
-stages) at a small batch. This file imports nothing of JAX, so it runs on a
-machine without it:
+stages) at a small batch. Beside the kernels: a small net's train step on the
+card against the CPU, and two processes on the one card against one. This
+file imports nothing of JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+The file is also the two processes' worker: ``python tests/test_torch_gpu.py
+RANK WORLD STORE OUTDIR`` (with the repository on ``PYTHONPATH``) runs one
+rank of a gloo group whose rendezvous is the file STORE.
 """
 
+import json
+import math
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vit_search_torch.ops import attention as A
 from vit_search_torch.ops import batch_norm as BN
 from vit_search_torch.ops import kernels
@@ -22,6 +33,7 @@ from vit_search_torch.ops import stats as S
 from vit_search_torch.ops.masking import make_channel_mask
 from vit_search_torch.tools import attn_lab as L
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = [(257, 256, 6, 32), (65, 512, 12, 48), (17, 1024, 12, 64)]
 IDS = ["stage1", "stage2", "stage3"]
 
@@ -348,14 +360,171 @@ def test_model_sends_head_dims_the_kernels_do_not_take_to_plain(cuda):
         assert torch.isfinite(x.grad).all()
 
 
-@pytest.mark.gpu
-def test_reference_net_in_bf16_matches_the_cpu(cuda):
-    """The small supernet in bf16 on the card (tensor-core attention) against
-    the same net on the CPU (plain versions), at chip_smoke's tolerance."""
-    import chip_smoke
+# a supernet of three stages at 112 px, 10 classes: the small net of the card-vs-CPU
+# steps
+CLI_NET = ((4, 64),
+           (1, (64, 4, 16), (64, 128), 1), (1, (64, 4, 16), (64, 128), 1),
+           (3, 64, 128),
+           (1, (128, 4, 32), (128, 256), 1),
+           (3, 128, 256),
+           (1, (256, 4, 64), (256, 512), 1),
+           (2, 256, 10))
+CLI_SPACE = [np.array([64, 48]),
+             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": None},
+             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": np.array([64, 0])},
+             np.array([128, 96]),
+             {"attn": np.array([128, 64]), "mlp": np.array([256, 192]), "layer": None},
+             np.array([256, 192]),
+             {"attn": np.array([256, 128]), "mlp": np.array([512, 256]), "layer": None},
+             None]
 
-    errs = chip_smoke.check_reference_net("fused", torch.bfloat16)
+
+# the small net's dense and distill steps: the EMA's decay, the dropout rate,
+# and the narrow teacher behind a 112 -> 96 px resize
+EMA_DECAY = 0.99996
+REF_DROPOUT = 0.1
+REF_TEACHER = {"target_size": 96, "widths": (32, 64), "depths": (1, 2), "group_width": 16,
+               "stem_width": 16, "num_classes": 10}
+
+
+def _reference_net(ln_route: str, dtype=torch.float32, dense: bool = False,
+                   distill: bool = False) -> dict:
+    """A small conv-stem supernet, float32 (or ``dtype``): one train step on
+    the card (kernels) against the same on the CPU (plain); the largest
+    error of each reading. In bfloat16 the loss, gradient norm and logits
+    are held to ``chip_smoke.REF_NET_BF16_TOL``; AdamW's first step moves
+    each parameter by about lr whatever its gradient, so only the float32
+    run holds the parameters. ``dense`` trains the same net as a searched
+    net (no masks, so K3/K4's dense mode on the card) with random erasing,
+    gradient clipping and the EMA on, the erasing boxes and noise drawn once
+    on the host for both devices; the EMA (decay ``EMA_DECAY``, which damps
+    the step's difference) is held to the parameters' float32 tolerance in
+    both dtypes. ``distill`` gives the net a distill token and trains it with
+    timm Mixup/CutMix (``elem`` mode), dropout ``REF_DROPOUT`` and hard
+    distillation from a narrow RegNetY teacher (``REF_TEACHER``: the 112 px
+    batch resized to 96 px), the mixup draws and dropout keeps made once on
+    the host; the teacher runs in float32 in both dtypes (in bf16 its hard
+    labels flip on near-ties, which the loss cannot absorb), its logits held
+    card vs CPU within 1e-4 in float32 and, on the same input in bfloat16,
+    within the bf16 logits tolerance."""
+    from vit_search_torch.data import sample_erasing_draws, sample_mixup_draws
+    from vit_search_torch.data.mixup import sample_token_mix_draws
+    from vit_search_torch.models import (RegNetYUpsample, SupernetSchedules, build_arch_masks,
+                                         create_model)
+    from vit_search_torch.train import (OptimConfig, StepDraws, TrainConfig, lr_schedule,
+                                        make_optimizer, make_teacher, make_train_step)
+
+    compare = chip_smoke.compare
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net, space = CLI_NET, CLI_SPACE
+    batch, img, clip = 8, 112, 1e-2
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (batch, img, img, 3), dtype=np.uint8))
+    labels = torch.as_tensor(rng.integers(0, 10, batch))
+    sched = SupernetSchedules(net, space, example_per_arch=2, num_warmup_epochs=0)
+    counts = None if dense else sched.sample_packed(rng, batch)
+    draws = StepDraws(mix=sample_token_mix_draws(rng, batch, 2),
+                      drop_keeps=[torch.as_tensor(rng.random(batch) < 0.9) for _ in range(8)])
+    cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2)
+    ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch)
+    name = "flexible_vit_sr_patch14_224_patch_output_supernet"
+    extra = {}
+    if dense:
+        name = "flexible_vit_sr_patch14_224_patch_output"
+        cfg = TrainConfig(num_classes=10, mixup_mode="token", patch_len=2, ema_decay=EMA_DECAY,
+                          erasing_prob=0.5, erasing_mode="pixel", erasing_count=2)
+        ocfg = OptimConfig(base_lr=1e-3, warmup_epochs=0, epochs=1, global_batch_size=batch,
+                           clip_grad=clip)
+        draws.erasing = sample_erasing_draws(rng, batch, img, img, 0.5, 2)
+        draws.erasing.fill = torch.randn(2, batch, img, img, 3,
+                                         generator=torch.Generator().manual_seed(2))
+    if distill:
+        name = "flexible_vit_sr_distill_patch14_224_supernet"
+        extra = {"dropout_rate": REF_DROPOUT}
+        cfg = TrainConfig(num_classes=10, mixup_mode="mixup", mixup_elem_mode="elem",
+                          distill_alpha=0.5, hard_distill=True)
+        draws.mix, draws.mixup = None, sample_mixup_draws(rng, batch, img, img, mode="elem")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model = create_model(name, network_def=net, img_size=img, drop_path_rate=0.1,
+                             gelu="tanh", device=dev, seed=0, ln_route=ln_route, dtype=dtype,
+                             **extra)
+        if distill and draws.dropout_keeps is None:
+            draws.dropout_keeps = [torch.as_tensor(rng.random(shape) >= REF_DROPOUT)
+                                   for shape in model.dropout_shapes(batch)]
+        masks = None if dense else build_arch_masks(sched.unpack(counts, batch), net, batch,
+                                                    device=dev)
+        x = torch.randn(batch, img, img, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+        dev_draws = StepDraws(mix=draws.mix, drop_keeps=[k.to(dev) for k in draws.drop_keeps],
+                              erasing=draws.erasing, mixup=draws.mixup,
+                              dropout_keeps=None if draws.dropout_keeps is None else
+                              [k.to(dev) for k in draws.dropout_keeps])
+        heads = model(x, masks, patch_output_type="seq", drop_keeps=dev_draws.drop_keeps,
+                      dropout_keeps=dev_draws.dropout_keeps)
+        teacher, teacher_logits = None, {}
+        if distill:
+            teacher_model = RegNetYUpsample(**REF_TEACHER, device=dev, seed=3)
+            teacher = make_teacher(teacher_model)
+            teacher_logits["float32"] = teacher(x).cpu()
+            teacher_bf16 = RegNetYUpsample(**REF_TEACHER, device=dev, seed=3,
+                                           dtype=torch.bfloat16)
+            teacher_logits["bfloat16"] = make_teacher(teacher_bf16)(x).float().cpu()
+        step = make_train_step(model, make_optimizer(ocfg, model), cfg,
+                               schedule=lr_schedule(ocfg),
+                               counts_unpack=None if dense else sched.unpack, device=dev,
+                               teacher=teacher)
+        metrics = step(images.to(dev), labels.to(dev), counts, draws=dev_draws)
+        ema = {k: v.detach().cpu() for k, v in (step.state.ema_params or {}).items()}
+        results[dev] = ([h.detach().cpu() for h in heads], float(metrics["loss"]),
+                        float(metrics["grad_norm"]),
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}, ema,
+                        teacher_logits)
+    (h0, l0, g0, sd0, ema0, t0), (h1, l1, g1, sd1, ema1, t1) = results["cpu"], results["cuda"]
+    bf16 = dtype == torch.bfloat16
+    tol = chip_smoke.REF_NET_BF16_TOL if bf16 else {"logits": (1e-3, 1e-3), "loss": 1e-4,
+                                                    "grad_norm": 1e-4}
+    second = "dst_logits" if distill else "patch_logits"
+    errs = {"cls_logits": compare("ref net cls logits", h1[0], h0[0], tol["logits"]),
+            second: compare(f"ref net {second}", h1[1], h0[1], tol["logits"])}
+    for what, a, b_ in (("loss", l1, l0), ("grad_norm", g1, g0)):
+        assert math.isclose(a, b_, rel_tol=tol[what]), f"ref net {what}: card {a} vs CPU {b_}"
+        errs[what] = abs(a - b_)
+    if dense:
+        assert g0 > clip and g1 > clip, f"gradient norms {g0}, {g1} not clipped at {clip}"
+        assert draws.erasing.apply.any(), "no image erased"
+        errs["ema_params"] = max(compare(f"ref net EMA {k}", ema1[k], ema0[k], (1e-4, 1e-4),
+                                         floor=1e-6) for k in ema0)
+    if distill:
+        errs["teacher_logits_f32"] = compare("ref net teacher logits", t1["float32"],
+                                             t0["float32"], (1e-4, 1e-4))
+        errs["teacher_logits_bf16"] = compare("ref net teacher logits, bf16", t1["bfloat16"],
+                                              t0["bfloat16"], chip_smoke.REF_NET_BF16_TOL["logits"])
+        cutmix = np.asarray(draws.mixup.use_cutmix)
+        assert cutmix.any() and not cutmix.all(), "the mixup draws took one branch only"
+    if bf16:
+        return errs
+    # AdamW's first step moves each parameter by about lr whatever the
+    # gradient's size, so parameters are held to an absolute floor
+    errs["params_after_step"] = max(compare(f"ref net {k}", sd1[k], sd0[k], (1e-4, 1e-4),
+                                            floor=1e-6) for k in sd0)
+    return errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ln_route,dtype", [("fused", torch.float32), ("stats", torch.float32),
+                                            ("fused", torch.bfloat16)],
+                         ids=["f32-fused", "f32-stats", "bf16-fused"])
+def test_reference_net_in_bf16_matches_the_cpu(cuda, ln_route, dtype):
+    """The small supernet's train step on the card against the same on the
+    CPU (plain versions): in float32 (the attention kernels' CUDA-core
+    bodies) on both masked-LN routes (``fused``: K3/K4; ``stats``: K5), the
+    parameters after the step too; in bf16 (tensor-core attention) on the
+    fused route, at ``chip_smoke.REF_NET_BF16_TOL``."""
+    errs = _reference_net(ln_route, dtype)
+    print(f"reference net, {ln_route}, {dtype}: card vs CPU {json.dumps(errs)}")
     assert set(errs) >= {"loss", "grad_norm", "cls_logits", "patch_logits"}
+    assert ("params_after_step" in errs) == (dtype == torch.float32)
 
 
 @pytest.mark.gpu
@@ -1007,9 +1176,7 @@ def test_dense_step_with_erasing_clipping_and_ema_matches_the_cpu(cuda, dtype):
     """The small net trained as a searched net (no masks), one step with
     random erasing, gradient clipping and the EMA, on the card against the
     CPU with the same draws, at chip_smoke's tolerances."""
-    import chip_smoke
-
-    errs = chip_smoke.check_reference_net("fused", dtype, dense=True)
+    errs = _reference_net("fused", dtype, dense=True)
     assert set(errs) >= {"loss", "grad_norm", "cls_logits", "patch_logits", "ema_params"}
 
 
@@ -1145,9 +1312,7 @@ def test_mixup_distill_dropout_step_matches_the_cpu(cuda, dtype):
     dropout 0.1 and hard distillation from a narrow RegNetY teacher behind a
     resize, on the card against the CPU with the same draws, at
     chip_smoke's tolerances."""
-    import chip_smoke
-
-    errs = chip_smoke.check_reference_net("fused", dtype, distill=True)
+    errs = _reference_net("fused", dtype, distill=True)
     assert set(errs) >= {"loss", "grad_norm", "cls_logits", "dst_logits",
                          "teacher_logits_f32", "teacher_logits_bf16"}
 
@@ -1223,24 +1388,6 @@ def test_device_feed_delivers_the_loader_bytes(cuda):
     assert fed == len(batches) == 12
 
 
-# a supernet of three stages at 112 px (chip_smoke's reference net), 10 classes
-CLI_NET = ((4, 64),
-           (1, (64, 4, 16), (64, 128), 1), (1, (64, 4, 16), (64, 128), 1),
-           (3, 64, 128),
-           (1, (128, 4, 32), (128, 256), 1),
-           (3, 128, 256),
-           (1, (256, 4, 64), (256, 512), 1),
-           (2, 256, 10))
-CLI_SPACE = [np.array([64, 48]),
-             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": None},
-             {"attn": np.array([64, 32]), "mlp": np.array([128, 96]), "layer": np.array([64, 0])},
-             np.array([128, 96]),
-             {"attn": np.array([128, 64]), "mlp": np.array([256, 192]), "layer": None},
-             np.array([256, 192]),
-             {"attn": np.array([256, 128]), "mlp": np.array([512, 256]), "layer": None},
-             None]
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_cli_two_steps_on_the_card_match_the_cpu(cuda, bf16, tmp_path, monkeypatch):
@@ -1250,9 +1397,6 @@ def test_cli_two_steps_on_the_card_match_the_cpu(cuda, bf16, tmp_path, monkeypat
     and the device draws are off (no drop-path, no dropout). float32 with
     TF32 off: the train and eval losses within 1e-4, parameters within 1e-4
     (floor 1e-6); bfloat16: the losses within ``REF_NET_BF16_TOL``."""
-    import math
-
-    import chip_smoke
     from vit_search_torch.arch import spaces
     from vit_search_torch.cli import train as train_cli
     from vit_search_torch.tools.make_synthfolder import generate
@@ -1333,8 +1477,6 @@ def test_batch_norm_kernels_match_the_plain_path(cuda, shape, dtype, relu, layou
     The reference's ReLU is its own; dx is not compared where its float32
     pre-activation lies in ``chip_smoke.relu_kink``'s band, within a few ulps
     of 0, which may hold at most ``chip_smoke.KINK_SHARE`` of the elements."""
-    import chip_smoke
-
     x, g, params = _bn_inputs(cuda, shape, dtype, layout)
     before = (BN.BN_STATS.launches, BN.BN_APPLY.launches, BN.BN_BWD.launches)
     y, rm, rv, (dx, dw, db) = _bn_run(BN.batch_norm, x, g, params, train, relu)
@@ -1475,3 +1617,267 @@ def test_batch_norm_eval_backward_keeps_the_statistics_of_its_forward(cuda):
     got = torch.autograd.grad(y, (leaf, w, b), g)
     for a, c in zip(got, want):
         assert torch.equal(a, c)
+
+
+# --- two processes on the one card against one ---------------------------------
+#
+# The Tiny supernet's train step (``chip_smoke.supernet_step``) at a global
+# batch of DIST_BATCH in two processes on the one card, joined over gloo (NCCL
+# refuses two ranks on one card), each with half the rows, against the same
+# steps in one process; then the first generation of the search scored on each
+# rank's share of the sub-val batches against one process scoring them all.
+# Two processes and one differ only in the order of the sums (the gradients',
+# the conv stem's batch statistics'): relative limits on the losses, the grad
+# norms and the conv stem's running statistics (by norm), each near the
+# geometric mean of the sound run's gap and the smallest planted fault's
+# (``PLANTED_FAULTS``, each of which must be caught). On an H100 the sound
+# run's gaps were 1.2e-5 / 3.6e-4 / 2.2e-6; local drop-path keeps gave 1.1e-3 /
+# 6.6e-3 / 8.3e-5; local batch statistics 8.7e-5 / 5.3e-4 / 5.3e-2, and ranks
+# that disagree.
+DIST_PROCS, DIST_STEPS, DIST_BATCH = 2, 2, 512
+DIST_TOL = {"loss": 1e-4, "grad_norm": 1.5e-3, "bn_stats": 1e-5}
+# the search: evolutionary_search/tiny.sh's budget, its --arch-batch and
+# --val-bs, 20 random candidates over three sub-val batches (the last with 128
+# valid rows)
+TINY_BUDGET, POPULATION = 1.7944e9, 20
+VAL_BATCH, ARCH_BATCH, VAL_BATCHES, LAST_VALID = 256, 8, 3, 128
+
+
+def _plant_local_bn():
+    """Planted fault: the conv stem's batch statistics from this rank's rows
+    alone. Returns its undo."""
+    from types import SimpleNamespace
+
+    saved = BN.parallel
+    BN.parallel = SimpleNamespace(sum_over_processes=lambda x: x, process_count=lambda: 1)
+    return lambda: setattr(BN, "parallel", saved)
+
+
+def _plant_local_drop_path():
+    """Planted fault: drop-path keeps drawn at this rank's shape instead of
+    cut from the global batch's (no ``RowShard``). Returns its undo."""
+    from vit_search_torch.train import engine
+
+    saved = engine.RowShard
+    engine.RowShard = lambda generator, *rows: generator
+    return lambda: setattr(engine, "RowShard", saved)
+
+
+PLANTED_FAULTS = {"local_bn_stats": _plant_local_bn, "local_drop_path": _plant_local_drop_path}
+
+
+def _launches() -> dict:
+    """Each kernel's launches since the last reset, 0 for one not imported."""
+    counted = {k.name: k.launches for k in kernels.KERNELS}
+    return {name: counted.get(name, 0) for name in chip_smoke.KERNEL_NAMES}
+
+
+def _dist_steps(images, labels) -> dict:
+    """``DIST_STEPS`` steps of the Tiny supernet at the global batch on this
+    process's rows: the losses, grad norms, the conv stem's running
+    statistics, and each kernel's launches."""
+    import gc
+
+    step, sched = chip_smoke.supernet_step(batch=DIST_BATCH)
+    rng = np.random.default_rng(0)
+    kernels.reset_launches()
+    metrics = [step(images, labels, sched.sample_packed(rng, DIST_BATCH))
+               for _ in range(DIST_STEPS)]
+    out = {"losses": [float(m["loss"]) for m in metrics],
+           "grad_norms": [float(m["grad_norm"]) for m in metrics],
+           "bn_stats": {name: b.tolist() for name, b in step.model.named_buffers()
+                        if name.endswith(("running_mean", "running_var"))},
+           "launches": _launches()}
+    del step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sub_val_loader():
+    """Synthetic sub-val batches of uint8 images on the card, the same at
+    every call; the last batch has ``LAST_VALID`` valid rows."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    loader = []
+    for i in range(VAL_BATCHES):
+        valid = torch.ones(VAL_BATCH, device="cuda")
+        if i == VAL_BATCHES - 1:
+            valid[LAST_VALID:] = 0
+        loader.append((torch.randint(0, 256, (VAL_BATCH, 224, 224, 3), dtype=torch.uint8,
+                                     device="cuda", generator=gen),
+                       torch.randint(0, 1000, (VAL_BATCH,), device="cuda", generator=gen),
+                       valid))
+    return loader
+
+
+def _score(loader) -> dict:
+    """The native generators' first ``POPULATION`` candidates under the Tiny
+    budget, scored on ``loader`` by the full-width supernet (bf16, the fused
+    route), ``ARCH_BATCH`` per forward."""
+    from vit_search_torch.arch import ComputationEstimator, presets, spaces
+    from vit_search_torch.models import SupernetSchedules, create_model
+    from vit_search_torch.search import BatchedSupernetEvaluator, PopulationEvolver
+
+    net, space = presets.SUPERNET_SR_TINY_MH, spaces.get_space("sr_tiny_mh")
+    model = create_model("flexible_vit_sr_patch14_224_patch_output_supernet", network_def=net,
+                         dtype=torch.bfloat16, gelu="tanh", seed=0)
+    est = ComputationEstimator(distill=False, input_resolution=224, patch_size=14)
+    evolver = PopulationEvolver(net, space, TINY_BUDGET, est, seed=0, backend="native")
+    evolver.random_sample(POPULATION)
+    defs = [ind.network_def for ind in evolver.popu]
+    evaluator = BatchedSupernetEvaluator(
+        model, SupernetSchedules(net, space, example_per_arch=1, num_warmup_epochs=0), loader,
+        arch_batch=ARCH_BATCH, score_head="cls")
+    kernels.reset_launches()
+    scores = evaluator.score(defs)
+    return {"network_defs": [repr(d) for d in defs], "scores": list(map(float, scores)),
+            "launches": _launches(), "forwards": -(-len(defs) // ARCH_BATCH) * len(loader)}
+
+
+def _dist_worker(rank: int, world: int, store: str, out: str) -> None:
+    """One rank: the steps on its rows, the same steps under each planted
+    fault, then the candidates scored on its share of the sub-val batches;
+    its readings to ``out/rank<rank>.json``."""
+    from vit_search_torch import parallel
+
+    parallel.init_distributed(f"file://{store}", world, rank, local_rank=0, device="cuda",
+                              backend="gloo")
+    images, labels = chip_smoke.synthetic_batch(DIST_BATCH, 224, 0)
+    lo, hi = parallel.batch_slice(DIST_BATCH)
+    rows = images[lo:hi].contiguous(), labels[lo:hi].contiguous()
+    report = {"two_ranks": _dist_steps(*rows)}
+    for fault, plant in PLANTED_FAULTS.items():
+        undo = plant()
+        try:
+            report[fault] = _dist_steps(*rows)
+        finally:
+            undo()
+    report["score"] = _score(_sub_val_loader()[rank::world])
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    parallel.shutdown()
+
+
+def _env(**extra) -> dict:
+    """This process's environment with the repository importable and no
+    process group's variables but ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_"))}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return {**env, **extra}
+
+
+@pytest.fixture(scope="module")
+def dist_runs(tmp_path_factory):
+    """The two ranks' readings, and the same steps and scoring in this
+    process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = tmp_path_factory.mktemp("dist")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r),
+                               str(DIST_PROCS), str(out / "store"), str(out)],
+                              cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(DIST_PROCS)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text[-6000:]}"
+    ranks = []
+    for r in range(DIST_PROCS):
+        with open(out / f"rank{r}.json") as f:
+            ranks.append(json.load(f))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:   # supernet_step turns TF32 on, in the ranks as here
+        one = {"steps": _dist_steps(*chip_smoke.synthetic_batch(DIST_BATCH, 224, 0)),
+               "score": _score(_sub_val_loader())}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return ranks, one
+
+
+def _gaps(got: dict, want: dict) -> dict:
+    """Relative gaps of two runs' readings: the largest over the steps for
+    the losses and grad norms, the largest by norm over the statistics."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    bn = [math.dist(got["bn_stats"][k], v) / math.hypot(*v) for k, v in want["bn_stats"].items()]
+    return {"loss": max(map(rel, got["losses"], want["losses"])),
+            "grad_norm": max(map(rel, got["grad_norms"], want["grad_norms"])),
+            "bn_stats": max(bn)}
+
+
+def _nccl_launch(tmp_path) -> None:
+    """``python -m vit_search_torch.cli.launch`` as torchrun starts it, one
+    process on NCCL (a group of one runs every collective): one epoch of two
+    steps of ``super_net/tiny.sh``'s own arguments at ``DIST_BATCH`` on a
+    1000-class folder of three 32 px images a class, one held out. The
+    loader crops and resizes each image to 224 px on the host, so the card
+    sees the batch a full-size folder gives; host decode at full size is
+    ``tools/loader_check.py``'s."""
+    from vit_search_torch.data import build_subsets
+    from vit_search_torch.tools.make_synthfolder import generate
+
+    folder, out = str(tmp_path / "data"), str(tmp_path / "launch")
+    generate(folder, num_classes=1000, train_per_class=3, val_per_class=0, size=32, workers=4)
+    build_subsets(folder, per_class=1, seed=0)
+    _, argv = chip_smoke.script_command(os.path.join(chip_smoke.RECIPE_DIR, chip_smoke.TINY))
+    argv = chip_smoke.with_flags(argv, {"--data-path": folder, "--batch-size": str(DIST_BATCH),
+                                        "--epochs": "1", "--max-steps-per-epoch": "2",
+                                        "--output_dir": out, "--num_workers": "4"})
+    torch.cuda.empty_cache()   # this process's cached blocks to the launched one
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.run([sys.executable, "-m", "vit_search_torch.cli.launch", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=900,
+                          env=_env(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(os.path.join(out, "verbose.log")) as f:
+        group = next((line for line in f if "over nccl" in line), "")
+    assert "rank 0 of 1 over nccl" in group, group
+    with open(os.path.join(out, "log.txt")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [line["epoch"] for line in lines] == [0] and math.isfinite(lines[0]["train_loss"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["two_ranks", *PLANTED_FAULTS, "nccl_launch"])
+def test_two_processes_on_the_card_match_one(cuda, case, request, tmp_path):
+    """``two_ranks``: both ranks equal bit for bit, within ``DIST_TOL`` of
+    one process, each kernel launched as ``recipe_launches`` counts a Tiny
+    supernet step or scoring forward, and the scores equal to one process's
+    bit for bit. A planted fault: caught, by the ranks' disagreement or by a
+    gap over ``DIST_TOL``. ``nccl_launch``: ``cli.launch`` on NCCL."""
+    if case == "nccl_launch":
+        _nccl_launch(tmp_path)
+        return
+    ranks, one = request.getfixturevalue("dist_runs")
+    keys = ("losses", "grad_norms", "bn_stats")
+    got = [{k: r[case][k] for k in keys} for r in ranks]
+    agree = all(g == got[0] for g in got)
+    gaps = _gaps(got[0], one["steps"])
+    over = [k for k, tol in DIST_TOL.items() if gaps[k] > tol]
+    print(f"dist {case}: gaps of two processes to one {json.dumps(gaps)} (limits "
+          f"{json.dumps(DIST_TOL)}), ranks agree: {agree}")
+    if case != "two_ranks":
+        assert not agree or over, f"{case} not caught: {gaps}"
+        return
+    assert agree and not over, gaps
+    step, forward = chip_smoke.recipe_launches(*chip_smoke.recipe_net(chip_smoke.TINY))
+    for r in ranks:
+        assert r["two_ranks"]["launches"] == {k: DIST_STEPS * v for k, v in step.items()}
+        score = r["score"]
+        assert score["launches"] == {k: score["forwards"] * v for k, v in forward.items()}
+        assert (score["network_defs"], score["scores"]) == (one["score"]["network_defs"],
+                                                            one["score"]["scores"])
+
+
+if __name__ == "__main__":
+    _dist_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -14,8 +14,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from vit_search_torch import models
+from vit_search_torch import models, train
 from vit_search_torch.models import swin_v2
+from vit_search_torch.ops import kernels
 from vit_search_torch.ops import window_attention as W
 
 # SwinV2-B at 256 px, 256 images: (windows B * nW, N, heads, shifted), the
@@ -146,3 +147,33 @@ def test_small_swin_step_on_the_card_matches_the_cpu(cuda):
     bad = {n: v for n, v in gaps.items() if v > 0.05}
     assert not bad, bad
     assert float(F.cosine_similarity(torch.cat(got), torch.cat(want), dim=0)) >= 0.99
+
+
+@pytest.mark.gpu
+def test_swinv2_base_step_launches_each_window_kernel_once_a_block(cuda):
+    """One train step of the full SwinV2-B at 256 px and 256 images, with
+    the recipe's optimizer, mixup and erasing (the ``swinv2_base.train``
+    cell's): W1 and W2 once each of its 24 blocks (depths 2, 2, 18, 2), the
+    dense K3/K4 once each of its 53 layer norms (two a block, the patch
+    embedding's, three patch merges', the final one), and no other kernel."""
+    torch.cuda.empty_cache()
+    model = models.create_model("swinv2_base_window16_256", dtype=torch.bfloat16, device=cuda)
+    ocfg = train.OptimConfig(base_lr=5e-4, min_lr=1e-5, warmup_lr=1e-6, warmup_epochs=20,
+                             epochs=300, clip_grad=5.0, global_batch_size=1024)
+    step = train.make_train_step(model, train.make_optimizer(ocfg, model),
+                                 train.TrainConfig(mixup_mode="mixup", erasing_prob=0.25),
+                                 schedule=train.lr_schedule(ocfg), device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.randint(0, 256, (256, 256, 256, 3), dtype=torch.uint8, device=cuda,
+                           generator=gen)
+    labels = torch.randint(0, 1000, (256,), device=cuda, generator=gen)
+    kernels.reset_launches()
+    metrics = step(images, labels)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(metrics["loss"]))
+    launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    print(f"SwinV2-B step launches: {launches}")
+    assert launches == {"window_attention_fwd": 24, "window_attention_bwd": 24,
+                        "layer_norm_fwd": 53, "layer_norm_bwd": 53}
+    del model, step, metrics
+    torch.cuda.empty_cache()

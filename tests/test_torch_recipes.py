@@ -16,6 +16,8 @@
   ``tests/test_torch_train_step.py``.
 - The training CLI writes ``best`` and ``best_ema`` after an evaluated epoch
   that scored 0%, so the chain's finetunes and eval find them.
+- ``chip_smoke.py``'s kernel table: a row for every registered kernel, each
+  case's net one whose launches the recipes phase counts, or none.
 """
 
 import importlib.util
@@ -190,6 +192,52 @@ def test_recipe_launches_count_the_conv_stem_norms(script, norms):
 ])
 def test_recipe_kernel_shapes_come_from_the_network_def(script, stages):
     assert chip_smoke.recipe_stages(script) == stages
+
+
+# --- the kernel table ----------------------------------------------------------------
+
+def test_launch_tables_name_every_registered_kernel():
+    """``KERNEL_NAMES``, the records ``recipe_launches`` counts, are the
+    kernels the port registers once every ops module and the lab are
+    imported."""
+    import importlib
+    import pkgutil
+
+    from vit_search_torch import ops
+    from vit_search_torch.ops import kernels
+    from vit_search_torch.tools import attn_lab  # noqa: F401  (registers K10-K12)
+
+    for mod in pkgutil.iter_modules(ops.__path__):
+        importlib.import_module(f"vit_search_torch.ops.{mod.name}")
+    assert sorted(chip_smoke.KERNEL_NAMES) == sorted(k.name for k in kernels.KERNELS)
+
+
+def _case_kernels(case) -> tuple:
+    """The kernel records a case of the table gives rows for, by its check
+    and shape (the stem module's row is a model layer's, not a kernel's)."""
+    if case.check == "attention":
+        names = chip_smoke.ATTENTION_KERNELS[case.shape[4]]
+        return names if len(case.shape) < 7 or case.shape[6] else names[:1]
+    if case.check == "masked_ln":
+        return ("masked_layer_norm_fwd", "masked_layer_norm_bwd")[:1 + case.shape[3]]
+    if case.check == "stem_norm":
+        return (("batch_norm_stats", "batch_norm_apply", "batch_norm_bwd") if case.shape[2]
+                else ("batch_norm_apply",))
+    return {"row_stats": ("row_sum_sumsq",), "lab": tuple(c[0] for c in chip_smoke.lab_cases()),
+            "layer_norm": ("layer_norm_fwd", "layer_norm_bwd"), "stem_module": (),
+            "window_attention": ("window_attention_fwd", "window_attention_bwd")}[case.check]
+
+
+def test_the_table_covers_every_registered_kernel():
+    """Every kernel has a row among ``cases()``; each case names a check,
+    and its net is a script that the recipes phase runs (which counts the
+    row's launches), DeiT-S, SwinV2-B, or none."""
+    cases = chip_smoke.cases()
+    rows = {name for case in cases for name in _case_kernels(case)}
+    assert rows == set(chip_smoke.KERNEL_NAMES)
+    for case in cases:
+        assert case.check in chip_smoke.CHECKS, case
+        assert case.net in (*chip_smoke.RECIPES, "DeiT-S", "SwinV2-B", None), case
 
 
 # --- the CLI writes the checkpoints that the chain reads ------------------------------
