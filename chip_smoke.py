@@ -11,8 +11,8 @@ Two jobs, each fatal on failure (non-zero exit, no result line):
    ptxas report, on stderr), each case of ``cases()`` compares its kernels
    with their plain PyTorch versions at the case's shape (``compare``, within
    the tolerance the row states: a timed kernel is a correct one) and times
-   them. ``--phase stem`` and ``--phase swin`` run only those groups of
-   cases. Each row of the ``{"kernels": [...]}`` line has the columns:
+   them. ``--phase stem``, ``--phase swin`` and ``--phase prefix`` run only
+   those groups of cases. Each row of the ``{"kernels": [...]}`` line has the columns:
 
    - ``name``, ``source``, ``replaces``: the kernel's record, its source file
      and the TPU kernel it ports;
@@ -25,7 +25,7 @@ Two jobs, each fatal on failure (non-zero exit, no result line):
      forwards (``{"count", "steps", "forwards"}``, held there to
      ``recipe_launches``; K5 counts 0, since no script takes
      ``ln_route="stats"``); null where nothing in the process counted them:
-     DeiT-S, SwinV2-B, no net, and every ``--phase stem`` or ``swin`` run;
+     DeiT-S, SwinV2-B, no net, and every ``--phase`` run but ``all``;
    - ``max_abs_err``, ``tolerance``: against the plain version;
    - ``ms``: device time per launch (launches captured in a CUDA graph,
      inputs rotated past the L2 cache); ``call_ms``: per call of the
@@ -64,8 +64,8 @@ Two jobs, each fatal on failure (non-zero exit, no result line):
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` gets the full
 report. The card's other checks are the gpu-marked tests (``python -m pytest
---noconftest -m gpu tests/test_torch_gpu*.py``); end-to-end rates are the
-benchmark's (``python3 benchmark/run.py``).
+--noconftest -m gpu tests/test_torch_gpu*.py tests/test_torch_prefix_mask.py``);
+end-to-end rates are the benchmark's (``python3 benchmark/run.py``).
 
 It imports nothing of JAX. It exits non-zero when no CUDA device is
 available, and when it stands alone without the repository.
@@ -100,7 +100,8 @@ KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd
                 "attention_qkv_t_fwd", "attention_qkv_t_bwd", "lab_fwd_t", "lab_bwd_t",
                 "lab_split_dq", "lab_split_dkv", "layer_norm_fwd", "layer_norm_bwd",
                 "window_attention_fwd", "window_attention_bwd", "batch_norm_stats",
-                "batch_norm_apply", "batch_norm_bwd")
+                "batch_norm_apply", "batch_norm_bwd", "prefix_gelu_fwd", "prefix_gelu_bwd",
+                "branch_add", "prefix_scale")
 # SwinV2-B's windowed attention at 256 px, 256 images: (windows B * nW, N,
 # heads, shift, the stage's resolution), each stage's unshifted and shifted
 # blocks (stages 3 and 4 are one window and never shift)
@@ -133,6 +134,7 @@ FINETUNE = "finetune/medium_img-size@392.sh"
 # of four cards, 64 a card
 FINETUNE_BATCH = 64
 STEM_CHANNELS = 24        # a conv stem's norms: 24 channels at half resolution
+PREFIX_DROP_PATH = 0.2    # M2/M3's rows: drop path at the Tiny supernet script's rate
 
 # recipes: the 24 published scripts of RECIPE_DIR, each through the port's CLI
 # in this process with its own arguments, in an order where every script runs
@@ -707,6 +709,95 @@ def check_layer_norm(label: str, reps: int, b: int, n: int, c: int):
                  library_call="F.layer_norm (forward+backward) - forward", plan=plans[1])]
 
 
+def check_prefix_mask(label: str, reps: int, b: int, n: int, c: int, heads: int, hidden: int,
+                      masked: bool):
+    """M1-M3 at a stage of ``(b, n)`` tokens in bf16, every example kept by
+    drop path (rate ``PREFIX_DROP_PATH``) and, where ``masked`` (a
+    supernet), every count at its full width, so that each kernel moves
+    every byte: M1 forward and backward at the MLP's ``hidden`` width, M2 and
+    M3 (its backward) on a residual branch of width ``c``, M3 on the head
+    mask at the attention's ``heads`` width. Each against its plain version
+    (float32, rounded once); ``library_ms`` is the composition the port ran
+    before (``F.gelu`` and the boolean multiply; drop path's divide, fill
+    and ``where``, the multiply and the add), ``plain_ms`` the plain
+    version. Without ``masked`` (a dense net): M2 and M3 with drop path
+    alone."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.models.layers import apply_mask
+    from vit_search_torch.ops import prefix_mask as P
+    from vit_search_torch.ops.drop_path import drop_path
+    from vit_search_torch.ops.masking import make_channel_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(700 + c)
+    keep = torch.ones(b, dtype=torch.bool, device="cuda")
+    scale = P.drop_path_scale(b, PREFIX_DROP_PATH, "cuda", keep)
+    rows, tol = [], f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref|"
+
+    def full(width):
+        return torch.full((b,), width, dtype=torch.int32, device="cuda") if masked else None
+
+    masks = {w: make_channel_mask(full(w), w) if masked else None for w in (c, heads, hidden)}
+
+    def row(name, what, width, fn, args, plain, library, got, want, nbytes_moved, flops,
+            call=None):
+        err = compare(f"{name} {label} {what}", got, want, BF16_TOL)
+        ms = graph_ms(fn, args, reps)
+        call_ms = time_ms(lambda: fn(*args), reps)
+        with torch.no_grad():
+            plain_ms, library_ms = time_ms(plain, reps), time_ms(library, reps)
+        bnd = bound(nbytes_moved, flops, PEAK_F32)
+        log(f"{name} {label} {what} (B, N, C) = ({b}, {n}, {width}): {ms:.4f} ms (bound "
+            f"{bnd[0]:.4f}, {100 * bnd[0] / ms:.1f}%); plain {plain_ms:.4f}; before "
+            f"{library_ms:.4f}")
+        rows.append(dict(name=name, stage=f"{label} {what}", shape={
+            "B": b, "N": n, "C": width, "dtype": "bfloat16", "masked": masked},
+            max_abs_err=err, tolerance=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms,
+            library_call=call or "the port's former composition"))
+
+    def rand(width):
+        return torch.randn(b, n, width, device="cuda", generator=gen).to(torch.bfloat16)
+
+    if masked:
+        h, g, counts = rand(hidden) * 2, rand(hidden), full(hidden)
+        y = P.prefix_gelu_fwd_cuda(h, counts, "exact")
+        row("prefix_gelu_fwd", "MLP hidden", hidden, P.prefix_gelu_fwd_cuda,
+            (h, counts, "exact"), lambda: P.prefix_gelu_plain(h, counts, "exact"),
+            lambda: apply_mask(F.gelu(h), masks[hidden]), y,
+            P.prefix_gelu_plain(h, counts, "exact"), nbytes(h, y), 20.0 * h.numel(),
+            "F.gelu, then the boolean multiply")
+        dh = P.prefix_gelu_bwd_cuda(h, g, counts, "exact")
+        ref = h.detach().clone().requires_grad_()
+        want = torch.autograd.grad(P.prefix_gelu_plain(ref, counts, "exact"), ref, g)[0]
+        row("prefix_gelu_bwd", "MLP hidden", hidden, P.prefix_gelu_bwd_cuda,
+            (h, g, counts, "exact"),
+            lambda: torch.ops.aten.gelu_backward(g.float() * masks[hidden], h.float()),
+            lambda: torch.ops.aten.gelu_backward(apply_mask(g, masks[hidden]), h), dh, want,
+            nbytes(h, g, dh), 30.0 * h.numel(),
+            "the boolean multiply's backward, then GELU's")
+        a, counts = rand(heads), full(heads)
+        y = P.prefix_scale_cuda(a, counts, None)
+        row("prefix_scale", "head mask", heads, P.prefix_scale_cuda, (a, counts, None),
+            lambda: P.prefix_scale_plain(a, counts, None),
+            lambda: apply_mask(a, masks[heads]), y, P.prefix_scale_plain(a, counts, None),
+            nbytes(a, y), 2.0 * a.numel(), "the boolean multiply")
+    x, f, counts = rand(c), rand(c), full(c)
+    out = P.branch_add_cuda(x, f, counts, scale)
+    row("branch_add", "residual branch", c, P.branch_add_cuda, (x, f, counts, scale),
+        lambda: P.branch_add_plain(x, f, counts, scale),
+        lambda: x + apply_mask(drop_path(f, PREFIX_DROP_PATH, True, keep=keep), masks[c]),
+        out, P.branch_add_plain(x, f, counts, scale), nbytes(x, f, out), 3.0 * x.numel(),
+        "drop path (divide, fill, where), the boolean multiply, the add")
+    df = P.prefix_scale_cuda(f, counts, scale)
+    row("prefix_scale", "residual branch backward", c, P.prefix_scale_cuda, (f, counts, scale),
+        lambda: P.prefix_scale_plain(f, counts, scale),
+        lambda: drop_path(apply_mask(f, masks[c]), PREFIX_DROP_PATH, True, keep=keep), df,
+        P.prefix_scale_plain(f, counts, scale), nbytes(f, df), 2.0 * f.numel(),
+        "the boolean multiply, drop path's where and divide")
+    return rows
+
+
 def stem_activation(batch: int, img: int, seed: int):
     """A stem norm's input as the stem makes it: ``conv1`` (3x3, stride 2,
     bf16) of NHWC images viewed as NCHW, in the layout the convolution
@@ -1239,25 +1330,45 @@ def stem_norms(network_def) -> int:
     return 0 if nd.block_type(network_def[0]) == nd.LINEAR_EMBED else STEM_NORMS
 
 
-def recipe_launches(network_def, img_size: int, masked: bool):
+def prefix_launches(network_def, masked: bool, drop_path: float):
+    """M1-M3's launches per train step and per eval (or scoring) forward. A
+    masked net (a supernet: every block has head and hidden counts, every
+    branch the embed count): M1 once each way a block, M2 once a branch, M3
+    for each head mask each way and each branch's backward. A dense net:
+    M2 and M3 (its backward) once on each branch whose drop-path rate is
+    above 0 (the rates rise from 0 at the first block), none in eval."""
+    from vit_search_torch.arch import network_def as nd
+
+    depth = nd.existing_depth(network_def)
+    if masked:
+        return (dict(prefix_gelu_fwd=depth, prefix_gelu_bwd=depth, branch_add=2 * depth,
+                     prefix_scale=4 * depth),
+                dict(prefix_gelu_fwd=depth, branch_add=2 * depth, prefix_scale=depth))
+    branches = 2 * (depth - 1) if drop_path > 0.0 and depth > 1 else 0
+    return dict(branch_add=branches, prefix_scale=branches), {}
+
+
+def recipe_launches(network_def, img_size: int, masked: bool, drop_path: float):
     """Launches per train step and per eval (or scoring) forward of a recipe's
     net, counted from its network_def: K1/K2 on each attention block that
     takes the kernel (N >= 8); K3/K4 on each layer norm (``dense_lns``),
     masked where ``masked`` (a supernet), else in their dense mode; B1/B2 on
-    a conv stem's norms (``stem_norms``)."""
+    a conv stem's norms (``stem_norms``); M1-M3 (``prefix_launches``)."""
     attention = kernel_attention_blocks(network_def, img_size)
     lns, norms = dense_lns(network_def), stem_norms(network_def)
     fwd, bwd = (("masked_layer_norm_fwd", "masked_layer_norm_bwd") if masked
                 else ("layer_norm_fwd", "layer_norm_bwd"))
+    step, forward = prefix_launches(network_def, masked, drop_path)
     return (with_stem(per_pass(attention_qkv_fwd=attention, attention_qkv_bwd=attention,
-                               **{fwd: lns, bwd: lns}), norms, True),
-            with_stem(per_pass(attention_qkv_fwd=attention, **{fwd: lns}), norms, False))
+                               **{fwd: lns, bwd: lns}, **step), norms, True),
+            with_stem(per_pass(attention_qkv_fwd=attention, **{fwd: lns}, **forward), norms,
+                      False))
 
 
 def net_stages(network_def, img_size: int, patch_size: int = 14) -> list:
-    """Each stage of a net at ``img_size``: ``{"N", "C", "H", "D",
+    """Each stage of a net at ``img_size``: ``{"N", "C", "H", "D", "F",
     "blocks"}``, its token count, embedding width, widest attention's heads
-    and head dim, and its transformer blocks."""
+    and head dim, widest MLP hidden width, and its transformer blocks."""
     from vit_search_torch.arch import network_def as nd
 
     grid, stages, n = img_size // patch_size, [], None
@@ -1268,30 +1379,36 @@ def net_stages(network_def, img_size: int, patch_size: int = 14) -> list:
         t = nd.transformer_def(block)
         if n != grid * grid + 1:
             n = grid * grid + 1
-            stages.append({"N": n, "C": t.embed_dim, "H": 0, "D": t.head_dim, "blocks": 0})
+            stages.append({"N": n, "C": t.embed_dim, "H": 0, "D": t.head_dim, "F": 0,
+                           "blocks": 0})
         st = stages[-1]
         st["blocks"] += 1
+        st["F"] = max(st["F"], t.ffn_hidden)
         if t.num_heads > st["H"]:
             st.update(H=t.num_heads, D=t.head_dim)
     return stages
 
 
 def recipe_net(script: str):
-    """``(network_def, input size, masked)`` of a recipe's net, from its own
-    arguments: masked (the masked layer norm) in a supernet or a search."""
+    """``(network_def, input size, masked, drop path)`` of a recipe's net, from
+    its own arguments as its CLI parses them: masked (the masked layer norm,
+    keep counts) in a supernet or a search; a search trains nothing."""
+    from vit_search_torch import models
     from vit_search_torch.arch import parse_network_def
+    from vit_search_torch.cli import evo_search as evo_cli
+    from vit_search_torch.cli import train as train_cli
 
     cli, argv = recipe_argv(script, "", 1)
-    net = parse_network_def(argv[argv.index("--network-def") + 1])
-    size = int(argv[argv.index("--input-size") + 1]) if "--input-size" in argv else 224
-    return net, size, cli == "evo_search" or argv[argv.index("--model") + 1].endswith(
-        "_supernet")
+    args = (train_cli if cli == "train" else evo_cli).get_args_parser().parse_args(argv)
+    masked = cli == "evo_search" or models.is_supernet_model(args.model)
+    return (parse_network_def(args.network_def), args.input_size, masked,
+            getattr(args, "drop_path", 0.0))
 
 
 def recipe_stages(script: str):
     """``[(N, C, heads, head_dim)]`` of each stage of a recipe's net at its
     input size, from its network_def (``net_stages``)."""
-    net, size, _ = recipe_net(script)
+    net, size, _, _ = recipe_net(script)
     return [(st["N"], st["C"], st["H"], st["D"]) for st in net_stages(net, size)]
 
 
@@ -1368,7 +1485,8 @@ def recipes(folder: str, root: str):
 
             net = parse_network_def(args.network_def)
             masked = cli == "evo_search" or models.is_supernet_model(args.model)
-            per_step, per_forward = recipe_launches(net, args.input_size, masked)
+            per_step, per_forward = recipe_launches(net, args.input_size, masked,
+                                                    getattr(args, "drop_path", 0.0))
             run = {"cli": cli, "argv": argv, "seconds": seconds, "peak_bytes": peak,
                    "launches": launches, "per_step": per_step, "per_forward": per_forward}
             if cli == "train":
@@ -1444,7 +1562,8 @@ def recipes(folder: str, root: str):
                 f"eval forwards, {rate}, acc1 {run.get('acc1', run.get('best_score'))}, peak "
                 f"{peak / 2**30:.2f} GiB, K1/K2/K3/K4 " + "/".join(
                     str(launches[k]) for k in KERNEL_NAMES[:4]) + ", dense K3/K4 "
-                f"{launches['layer_norm_fwd']}/{launches['layer_norm_bwd']}, {seconds:.1f} s")
+                f"{launches['layer_norm_fwd']}/{launches['layer_norm_bwd']}, M1/M1 bwd/M2/M3 "
+                + "/".join(str(launches[k]) for k in KERNEL_NAMES[-4:]) + f", {seconds:.1f} s")
     finally:
         os.chdir(cwd)
     return {"scripts": runs, "seconds": time.perf_counter() - t_phase}
@@ -1474,7 +1593,7 @@ def recipe_profile(script: str, steps: int, warmup: int):
     rng = np.random.default_rng(0)
     return run_steps(script, step, images, labels,
                      lambda: sched.sample_packed(rng, args.batch_size), steps, warmup,
-                     recipe_launches(net, args.input_size, True)[0])
+                     recipe_launches(net, args.input_size, True, args.drop_path)[0])
 
 
 def k2_route_by_name(n: int, h: int, d: int, batch: int) -> dict:
@@ -1662,7 +1781,7 @@ def check_window_attention(label: str, reps: int, bw: int, n: int, h: int, shift
 # ``check(label, REPS, *shape)``; it compares its kernels with their plain
 # versions and returns one row for each of its kernels. ``net`` names the net
 # whose pass gives the shape (``row_launches``). ``group``: "kernels" runs in
-# the full run only, "stem" and "swin" also alone (``--phase``).
+# the full run only, "stem", "swin" and "prefix" also alone (``--phase``).
 Case = collections.namedtuple("Case", "group check label shape net")
 
 
@@ -1708,6 +1827,14 @@ def cases() -> tuple:
                MEDIUM) for i, (n, c, _, _) in enumerate(medium)),
         *(Case("kernels", "layer_norm", f"392px stage {i + 1}", (script_batch(FINETUNE), n, c),
                FINETUNE) for i, (n, c, _, _) in enumerate(f392)),
+        # the supernet's masks and drop path at the Tiny stages, drop path
+        # alone at Medium's first
+        *(Case("prefix", "prefix_mask", f"stage {i + 1}",
+               (BATCH, st["N"], st["C"], st["H"] * st["D"], st["F"], True), TINY)
+          for i, st in enumerate(net_stages(*recipe_net(TINY)[:2]))),
+        *(Case("prefix", "prefix_mask", "Medium stage 1",
+               (script_batch(MEDIUM), st["N"], st["C"], st["H"] * st["D"], st["F"], False),
+               MEDIUM) for st in net_stages(*recipe_net(MEDIUM)[:2])[:1]),
         # the conv stem's batch norm with its ReLU at the cells' stem shapes,
         # then the whole stem module
         Case("stem", "stem_norm", "train 224px", (script_batch(TINY), 224, True), TINY),
@@ -1725,7 +1852,7 @@ def cases() -> tuple:
 CHECKS = {"attention": check_attention, "masked_ln": check_masked_ln,
           "row_stats": check_row_stats, "lab": check_lab, "layer_norm": check_layer_norm,
           "stem_norm": check_stem_norm, "stem_module": stem_module,
-          "window_attention": check_window_attention}
+          "window_attention": check_window_attention, "prefix_mask": check_prefix_mask}
 
 
 def row_launches(row: dict, scripts: dict):
@@ -1743,9 +1870,9 @@ def row_launches(row: dict, scripts: dict):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
-    parser.add_argument("--phase", choices=("all", "swin", "stem"), default="all",
-                        help="the whole table and the recipes, or only the table's SwinV2 or "
-                             "conv stem cases (after the build)")
+    parser.add_argument("--phase", choices=("all", "swin", "stem", "prefix"), default="all",
+                        help="the whole table and the recipes, or only the table's SwinV2, "
+                             "conv stem or prefix-mask cases (after the build)")
     args = parser.parse_args(argv)
 
     import torch

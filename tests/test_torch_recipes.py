@@ -147,7 +147,8 @@ def test_recipe_launches_per_step_and_per_forward(script, launches):
     args = _parser(cli).parse_args(argv)
     masked = cli == "evo_search" or args.model.endswith("_supernet")
     net = parse_network_def(args.network_def)
-    step, forward = chip_smoke.recipe_launches(net, args.input_size, masked)
+    step, forward = chip_smoke.recipe_launches(net, args.input_size, masked,
+                                               getattr(args, "drop_path", 0.0))
     assert (step["attention_qkv_fwd"], step["masked_layer_norm_fwd"],
             forward["attention_qkv_fwd"], forward["masked_layer_norm_fwd"],
             step["layer_norm_fwd"], forward["layer_norm_fwd"]) == launches
@@ -176,11 +177,32 @@ def test_recipe_launches_count_the_conv_stem_norms(script, norms):
     args = _parser(cli).parse_args(argv)
     masked = cli == "evo_search" or args.model.endswith("_supernet")
     net = parse_network_def(args.network_def)
-    step, forward = chip_smoke.recipe_launches(net, args.input_size, masked)
+    step, forward = chip_smoke.recipe_launches(net, args.input_size, masked,
+                                               getattr(args, "drop_path", 0.0))
     names = ("batch_norm_stats", "batch_norm_apply", "batch_norm_bwd")
     assert tuple(step[k] for k in names) == (norms, norms, norms)
     assert tuple(forward[k] for k in names) == (0, norms, 0)
     assert chip_smoke.stem_norms(net) == norms
+
+
+@pytest.mark.parametrize("script,step,forward", [
+    ("super_net/tiny.sh", (18, 18, 36, 72), (18, 0, 36, 18)),
+    ("evolutionary_search/tiny.sh", (18, 18, 36, 72), (18, 0, 36, 18)),
+    ("super_net/small.sh", (21, 21, 42, 84), (21, 0, 42, 21)),
+    ("searched_net/medium_mac@4.6G.sh", (0, 0, 38, 38), (0, 0, 0, 0)),
+    ("finetune/medium_img-size@392.sh", (0, 0, 38, 38), (0, 0, 0, 0)),
+    ("eval/small_mac@2.9G.sh", (0, 0, 32, 32), (0, 0, 0, 0)),
+])
+def test_recipe_launches_count_the_prefix_kernels(script, step, forward):
+    """M1 (forward, backward), M2 and M3 a train step and an eval or scoring
+    forward: in a supernet or a search every block's hidden and head masks
+    and both branches; in a dense net M2 and M3 on each branch whose
+    drop-path rate is above 0 (all but the first block's), none in eval."""
+    net, size, masked, rate = chip_smoke.recipe_net(script)
+    per_step, per_forward = chip_smoke.recipe_launches(net, size, masked, rate)
+    names = ("prefix_gelu_fwd", "prefix_gelu_bwd", "branch_add", "prefix_scale")
+    assert tuple(per_step[k] for k in names) == step
+    assert tuple(per_forward[k] for k in names) == forward
 
 
 @pytest.mark.parametrize("script,stages", [
@@ -220,6 +242,9 @@ def _case_kernels(case) -> tuple:
         return names if len(case.shape) < 7 or case.shape[6] else names[:1]
     if case.check == "masked_ln":
         return ("masked_layer_norm_fwd", "masked_layer_norm_bwd")[:1 + case.shape[3]]
+    if case.check == "prefix_mask":
+        return (("prefix_gelu_fwd", "prefix_gelu_bwd", "branch_add", "prefix_scale")
+                if case.shape[5] else ("branch_add", "prefix_scale"))
     if case.check == "stem_norm":
         return (("batch_norm_stats", "batch_norm_apply", "batch_norm_bwd") if case.shape[2]
                 else ("batch_norm_apply",))

@@ -9,6 +9,15 @@ arguments (``(B, 1, width)`` boolean tensors built from per-step keep counts):
   block's layer mask and the stage embed mask, and multiplies both residual
   branches.
 
+Every mask keeps a prefix of channels, so on a CUDA tensor a block takes the
+masks' per-example keep counts instead (``(B,)`` int32, the ``"counts"`` of
+``models.supernet.build_arch_masks``) and applies them, with drop path's
+scale, inside the passes that touch the data (``ops/prefix_mask.py``): the
+hidden mask inside GELU, the branch masks and drop path inside the residual
+add, the head mask on its own. The AND of prefix masks is the prefix of the
+smaller count. A CPU tensor, or a mask tree without counts, runs the boolean
+multiplies op for op.
+
 Parameters are float32 and named after the reference torch state dict; each
 layer casts its weights to the compute ``dtype`` at the call, as flax's
 ``dtype=`` does. Dropout sits where the JAX blocks put it: after the MLP's
@@ -28,10 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import prefix_mask
 from ..ops.attention import attention_qkv_plain, fused_attention_qkv, supported
 from ..ops.drop_path import drop_path
 from ..ops.dropout import dropout
 from ..ops.masked_layer_norm import masked_layer_norm
+from ..ops.prefix_mask import branch_add, drop_path_scale, prefix_gelu, prefix_scale
 
 INIT_STD = 0.02
 GELU_FORMS = ("exact", "tanh")
@@ -107,7 +118,9 @@ class MaskedLayerNorm(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> dropout -> [hidden mask] -> fc2 -> dropout. ``gelu``
-    is ``"exact"`` (erf) or ``"tanh"`` (the approximation)."""
+    is ``"exact"`` (erf) or ``"tanh"`` (the approximation). The hidden mask is
+    ``hidden_mask`` (boolean) or ``hidden_count`` (per-example keep counts),
+    which goes inside the GELU's pass where no dropout acts."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  gelu: str, dtype: torch.dtype, generator: torch.Generator,
@@ -121,11 +134,16 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, hidden_mask: Optional[torch.Tensor] = None,
                 dropout_keeps: Optional[Iterator[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                hidden_count: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = linear(x, self.fc1, self.dtype)
-        x = F.gelu(x, approximate="tanh" if self.gelu == "tanh" else "none")
-        x = dropout(x, self.dropout_rate, self.training, dropout_keeps, generator)
-        x = apply_mask(x, hidden_mask)
+        if hidden_count is not None and not (self.training and self.dropout_rate > 0.0):
+            x = prefix_gelu(x, hidden_count, self.gelu)
+        else:
+            x = F.gelu(x, approximate="tanh" if self.gelu == "tanh" else "none")
+            x = dropout(x, self.dropout_rate, self.training, dropout_keeps, generator)
+            x = (apply_mask(x, hidden_mask) if hidden_count is None
+                 else prefix_scale(x, hidden_count))
         x = linear(x, self.fc2, self.dtype)
         return dropout(x, self.dropout_rate, self.training, dropout_keeps, generator)
 
@@ -135,7 +153,8 @@ class Attention(nn.Module):
 
     ``qkv`` maps ``dim -> 3 * num_heads * head_dim`` with column blocks
     ``[q | k | v]``, each ordered by head, so prefix slicing per third
-    extracts a subnet. The head mask applies after attention.
+    extracts a subnet. The head mask (``width_mask``, boolean, or
+    ``width_count``, per-example keep counts) applies after attention.
     """
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, out_features: int,
@@ -150,7 +169,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, width_mask: Optional[torch.Tensor] = None,
                 dropout_keeps: Optional[Iterator[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                width_count: Optional[torch.Tensor] = None) -> torch.Tensor:
         scale = self.head_dim ** -0.5
         qkv = linear(x, self.qkv, self.dtype)
         if supported(x.shape[1], self.head_dim, self.attn_dropout_rate):
@@ -160,7 +180,7 @@ class Attention(nn.Module):
                                          self.training, dropout_keeps, generator)
         else:
             out = attention_qkv_plain(qkv, scale, self.num_heads)
-        out = apply_mask(out, width_mask)
+        out = apply_mask(out, width_mask) if width_count is None else prefix_scale(out, width_count)
         out = linear(out, self.proj, self.dtype)
         return dropout(out, self.proj_dropout_rate, self.training, dropout_keeps, generator)
 
@@ -182,6 +202,12 @@ class Block(nn.Module):
     its keep draws from ``keeps`` (an iterator, attention branch first) when
     given, else from ``generator``; dropout likewise from ``dropout_keeps``.
     ``ln_route`` is both norms' route.
+
+    An ``x`` on the kernels' route (``ops.prefix_mask.kernel_route``: a
+    CUDA tensor) whose block has no boolean site masks (and whose
+    ``embed_mask``, if any, comes with ``embed_count``) takes the count route:
+    ``counts`` holds the site's ``attn``/``mlp``/``layer`` keep counts, and the
+    layer-and-embed chain, ``layer_mask`` in and out, is a count vector.
     """
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_hidden: int,
@@ -203,11 +229,28 @@ class Block(nn.Module):
         keep = next(keeps) if keeps is not None else None
         return drop_path(x, self.drop_path_rate, True, keep=keep, generator=generator)
 
+    def _add(self, x: torch.Tensor, f: torch.Tensor, count: Optional[torch.Tensor],
+             keeps: Optional[Iterator[torch.Tensor]],
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        """``x + f`` with the branch's count mask and drop path in one pass."""
+        scale = None
+        if self.training and self.drop_path_rate > 0.0:
+            keep = next(keeps) if keeps is not None else None
+            scale = drop_path_scale(x.shape[0], self.drop_path_rate, x.device, keep, generator)
+        if count is None and scale is None:
+            return x + f
+        return branch_add(x, f, count, scale)
+
     def forward(self, x: torch.Tensor, embed_mask: Optional[torch.Tensor] = None,
                 layer_mask: Optional[torch.Tensor] = None, masks: Optional[dict] = None,
                 keeps: Optional[Iterator[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                dropout_keeps: Optional[Iterator[torch.Tensor]] = None):
+                dropout_keeps: Optional[Iterator[torch.Tensor]] = None,
+                counts: Optional[dict] = None, embed_count: Optional[torch.Tensor] = None):
+        if (prefix_mask.kernel_route(x) and not masks
+                and (embed_mask is None or embed_count is not None)):
+            return self._forward_counts(x, embed_mask, layer_mask, counts or {}, embed_count,
+                                        keeps, generator, dropout_keeps)
         masks = masks or {}
         own_layer_mask = masks.get("layer")
 
@@ -231,6 +274,24 @@ class Block(nn.Module):
         if current is not None:
             f = apply_mask(f, current)
         return x + f, current
+
+    def _forward_counts(self, x, embed_mask, layer_count, counts, embed_count, keeps, generator,
+                        dropout_keeps):
+        """The forward on keep counts: the chain is the minimum of the own
+        layer count, the incoming chain and the embed count, or the embed
+        count alone where the block has no layer site."""
+        current = counts.get("layer")
+        if current is not None and layer_count is not None:
+            current = torch.minimum(current, layer_count)
+        if embed_count is not None:
+            current = embed_count if current is None else torch.minimum(current, embed_count)
+
+        f = self.attn(self.norm1(x, embed_mask), None, dropout_keeps, generator,
+                      counts.get("attn"))
+        x = self._add(x, f, current, keeps, generator)
+        f = self.mlp(self.norm2(x, embed_mask), None, dropout_keeps, generator,
+                     counts.get("mlp"))
+        return self._add(x, f, current, keeps, generator), current
 
     def dropout_shapes(self, batch: int, n: int) -> Tuple[tuple, ...]:
         """The shapes of the keep masks one training call draws, in order:

@@ -4,7 +4,8 @@ Port of vit_search_tpu/models/supernet.py:
 
   host:   SupernetSchedules.sample(rng, batch)   ->  keep-count tree (numpy ints)
           (or .counts_for_subnets(defs): the tree that selects given candidates)
-  device: build_arch_masks(counts, ...)          ->  boolean mask tree
+  device: build_arch_masks(counts, ...)          ->  mask tree (boolean masks,
+                                                    per-example counts)
   device: model(x, masks=...)
 
 The keep-count tree mirrors the network_def slots::
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..arch import network_def as nd
+from ..ops import prefix_mask
 from ..ops.masking import ChannelDropSchedule, expand_arch_counts, make_channel_mask
 from ..utils.trace import span
 
@@ -179,26 +181,36 @@ class SupernetSchedules:
 
 def build_arch_masks(counts: Optional[Dict], network_def: Sequence, batch: int,
                      device=None) -> Optional[Dict]:
-    """Turn a keep-count tree into the boolean mask tree the model consumes."""
+    """Turn a keep-count tree into the mask tree the model consumes.
+
+    ``"counts"`` mirrors the count tree with each site's ``(batch,)`` int32
+    per-example keep counts. The boolean ``(batch, 1, C)`` masks sit beside
+    them at ``"embed"`` and ``"slots"``: for every site where the counts lie
+    on the CPU, and only for the sites a masked layer norm reads (the embed
+    and spatial-reduction sites) where they take the kernels' route
+    (``ops.prefix_mask.kernel_route``), whose blocks read the counts."""
     if counts is None:
         return None
 
-    def mask_for(count_arr, width):
-        per_example = expand_arch_counts(torch.as_tensor(count_arr, device=device), batch)
-        return make_channel_mask(per_example, width)
+    def per_example(count_arr):
+        return expand_arch_counts(torch.as_tensor(count_arr, device=device),
+                                  batch).to(torch.int32)
 
-    masks = {"embed": None, "slots": {}}
+    masks = {"embed": None, "slots": {}, "counts": {"embed": None, "slots": {}}}
     if counts.get("embed") is not None:
-        masks["embed"] = mask_for(counts["embed"], nd.embed_channels(network_def[0]))
+        n = masks["counts"]["embed"] = per_example(counts["embed"])
+        masks["embed"] = make_channel_mask(n, nd.embed_channels(network_def[0]))
     for slot, site in counts.get("slots", {}).items():
         block = network_def[slot]
         if nd.block_type(block) == nd.SPATIAL_REDUCTION:
-            masks["slots"][slot] = {"embed": mask_for(site["embed"], nd.sr_channels(block)[1])}
-        else:
-            tdef = nd.transformer_def(block)
-            entry = {"attn": mask_for(site["attn"], tdef.attn_width),
-                     "mlp": mask_for(site["mlp"], tdef.ffn_hidden)}
-            if site.get("layer") is not None:
-                entry["layer"] = mask_for(site["layer"], tdef.embed_dim)
-            masks["slots"][slot] = entry
+            n = per_example(site["embed"])
+            masks["counts"]["slots"][slot] = {"embed": n}
+            masks["slots"][slot] = {"embed": make_channel_mask(n, nd.sr_channels(block)[1])}
+            continue
+        tdef = nd.transformer_def(block)
+        widths = {"attn": tdef.attn_width, "mlp": tdef.ffn_hidden, "layer": tdef.embed_dim}
+        entry = {k: per_example(site[k]) for k in widths if site.get(k) is not None}
+        masks["counts"]["slots"][slot] = entry
+        if not prefix_mask.kernel_route(entry["attn"]):
+            masks["slots"][slot] = {k: make_channel_mask(n, widths[k]) for k, n in entry.items()}
     return masks

@@ -3,8 +3,9 @@
 
 Port of vit_search_tpu/models/vit_sr.py. The same module serves dense nets
 (``masks=None``) and any sampled sub-architecture (masks from
-``models.supernet.build_arch_masks``). Removed blocks (exists=0) are
-parameterless bypass slots that reset the layer-mask chain.
+``models.supernet.build_arch_masks``, whose ``"counts"`` the blocks take on
+CUDA tensors). Removed blocks (exists=0) are parameterless bypass slots that
+reset the layer-mask chain.
 
 Parameter names follow the reference torch state dict: ``blocks.<j>`` counts
 every slot between the stem and the head, bypass slots included.
@@ -181,15 +182,19 @@ class VisionTransformerSR(nn.Module):
 
         keeps = None if drop_keeps is None else iter(drop_keeps)
         slot_masks = (masks or {}).get("slots", {})
+        counts = (masks or {}).get("counts") or {}
+        embed_count, slot_counts = counts.get("embed"), counts.get("slots", {})
         for slot, block in enumerate(self.blocks, start=1):
             if isinstance(block, Bypass):
                 layer_mask = None
             elif isinstance(block, Block):
                 x, layer_mask = block(x, embed_mask, layer_mask, slot_masks.get(slot),
-                                      keeps, generator, dropout_keeps)
+                                      keeps, generator, dropout_keeps, slot_counts.get(slot),
+                                      embed_count)
             else:
                 sr_mask = (slot_masks.get(slot) or {}).get("embed")
                 x, embed_mask = block(x, embed_mask, sr_mask)
+                embed_count = (slot_counts.get(slot) or {}).get("embed")
                 layer_mask = None
 
         if want_patches:
