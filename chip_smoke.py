@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels on one CUDA card (an H100), and run
 the 24 published recipes through the port's CLIs there.
 
-    python3 chip_smoke.py [--out DIR] [--phase all|swin|stem]
+    python3 chip_smoke.py [--out DIR] [--phase all|swin|stem|prefix|eva]
 
 Two jobs, each fatal on failure (non-zero exit, no result line):
 
@@ -11,21 +11,23 @@ Two jobs, each fatal on failure (non-zero exit, no result line):
    ptxas report, on stderr), each case of ``cases()`` compares its kernels
    with their plain PyTorch versions at the case's shape (``compare``, within
    the tolerance the row states: a timed kernel is a correct one) and times
-   them. ``--phase stem``, ``--phase swin`` and ``--phase prefix`` run only
-   those groups of cases. Each row of the ``{"kernels": [...]}`` line has the columns:
+   them. ``--phase stem``, ``--phase swin``, ``--phase prefix`` and ``--phase
+   eva`` run only those groups of cases. Each row of the ``{"kernels":
+   [...]}`` line has the columns:
 
    - ``name``, ``source``, ``replaces``: the kernel's record, its source file
      and the TPU kernel it ports;
    - ``stage``, ``batch``, ``shape``: the case's label and shape;
    - ``net``, ``launches``: the net whose pass gives the shape (a script of
-     ``RECIPE_DIR``, DeiT-S or SwinV2-B; none for the op-level API's K6-K9
+     ``RECIPE_DIR``, DeiT-S, SwinV2-B or EVA-02-L; none for the op-level API's K6-K9
      and the lab's K10-K12, which no model launches) and, for a script, the
      kernel's launches as the recipes phase of this process counted them in
      that script's run, with the run's train steps and eval or scoring
      forwards (``{"count", "steps", "forwards"}``, held there to
      ``recipe_launches``; K5 counts 0, since no script takes
      ``ln_route="stats"``); null where nothing in the process counted them:
-     DeiT-S, SwinV2-B, no net, and every ``--phase`` run but ``all``;
+     DeiT-S, SwinV2-B, EVA-02-L, no net, and every ``--phase`` run but
+     ``all``;
    - ``max_abs_err``, ``tolerance``: against the plain version;
    - ``ms``: device time per launch (launches captured in a CUDA graph,
      inputs rotated past the L2 cache); ``call_ms``: per call of the
@@ -101,12 +103,17 @@ KERNEL_NAMES = ("attention_qkv_fwd", "attention_qkv_bwd", "masked_layer_norm_fwd
                 "lab_split_dq", "lab_split_dkv", "layer_norm_fwd", "layer_norm_bwd",
                 "window_attention_fwd", "window_attention_bwd", "batch_norm_stats",
                 "batch_norm_apply", "batch_norm_bwd", "prefix_gelu_fwd", "prefix_gelu_bwd",
-                "branch_add", "prefix_scale")
+                "branch_add", "prefix_scale", "rope_attention_fwd", "rope_attention_bwd",
+                "swiglu_ln_fwd", "swiglu_ln_bwd")
 # SwinV2-B's windowed attention at 256 px, 256 images: (windows B * nW, N,
 # heads, shift, the stage's resolution), each stage's unshifted and shifted
 # blocks (stages 3 and 4 are one window and never shift)
 SWIN_STAGES = ((4096, 256, 4, 0, 64), (4096, 256, 4, 8, 64), (1024, 256, 8, 0, 32),
                (1024, 256, 8, 8, 32), (256, 256, 16, 0, 16), (256, 64, 32, 0, 8))
+# EVA-02-L at 448 px, the fine-tune cell's 48 images: the rotary attention's
+# (B, N, heads, d) and the SwiGLU sub-LN's (rows, H, the model's pitch)
+EVA_ATTENTION = (48, 1025, 16, 64)
+EVA_SWIGLU = (48 * 1025, 2730, 2736)
 
 
 def per_pass(**counts):
@@ -1777,11 +1784,176 @@ def check_window_attention(label: str, reps: int, bw: int, n: int, h: int, shift
     return entries
 
 
+def check_rope_attention(label: str, reps: int, b: int, n: int, h: int, d: int):
+    """The streaming rotary attention (R1/R2) at EVA-02-L's shape with its
+    tables: out and dqkv against ``rope_attention_plain`` /
+    ``rope_attention_bwd_plain`` in float32 (``BF16_TOL``), one counted
+    launch of each record per autograd call, each direction timed beside its
+    bound, the plain version and SDPA with the rotation applied outside in
+    PyTorch."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.models.eva02 import rope_tables
+    from vit_search_torch.ops import rope_attention as R
+
+    gen = torch.Generator(device="cuda").manual_seed(n + h + d)
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16()
+    tables = tuple(t.cuda() for t in rope_tables(int(round((n - 1) ** 0.5)), d))
+    scale, shape = d ** -0.5, {"B": b, "N": n, "H": h, "D": d, "dtype": "bfloat16"}
+    before = (R.R1.launches, R.R2.launches)
+    leaf = qkv.clone().requires_grad_()
+    out = R.rope_attention(leaf, tables, scale, h)
+    (dqkv,) = torch.autograd.grad(out, leaf, g)
+    torch.cuda.synchronize()
+    if (R.R1.launches, R.R2.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"rotary attention {label}: launches not counted once")
+    err_fwd = compare(f"rotary attention forward {label}", out,
+                      R.rope_attention_plain(qkv.float(), tables, scale, h)[0], BF16_TOL)
+    err_bwd = compare(f"rotary attention backward {label}", dqkv,
+                      R.rope_attention_bwd_plain(qkv.float(), g.float(), tables, scale, h),
+                      BF16_TOL)
+    del out, dqkv, leaf
+    torch.cuda.empty_cache()
+    o, lse = R.rope_attention_fwd_cuda(qkv, tables, scale, h)
+    fwd_ms = graph_ms(lambda x: R.rope_attention_fwd_cuda(x, tables, scale, h), (qkv,), reps)
+    bwd_ms = graph_ms(lambda x, y, z, w: R.rope_attention_bwd_cuda(x, y, z, w, tables, scale,
+                                                                   h), (qkv, o, lse, g), reps)
+    fwd_call_ms = time_ms(lambda: R.rope_attention_fwd_cuda(qkv, tables, scale, h), reps)
+    bwd_call_ms = time_ms(lambda: R.rope_attention_bwd_cuda(qkv, o, lse, g, tables, scale, h),
+                          reps)
+    plain_fwd_ms = time_ms(lambda: R.rope_attention_plain(qkv, tables, scale, h), reps)
+    plain_bwd_ms = time_ms(lambda: R.rope_attention_bwd_plain(qkv, g, tables, scale, h), reps)
+    # SDPA after the rotation in PyTorch (bf16 in, float32 tables)
+    cos, sin = (t[:, None, :] for t in tables)
+    leaf = qkv.detach().clone().requires_grad_()
+
+    def sdpa():
+        q, k, v = leaf.view(b, n, 3, h, d).unbind(2)
+        q, k = ((x * cos + R.rotate_half(x) * sin).to(x.dtype) for x in (q, k))
+        return F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)))
+
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(sdpa, reps)
+    g_view = g.view(b, n, h, d).transpose(1, 2)
+    lib_all_ms = time_ms(lambda: torch.autograd.grad(sdpa(), leaf, g_view), reps)
+    bf = bound(*eva_attention_work(b, n, h, d, False), PEAK_BF16)
+    bb = bound(*eva_attention_work(b, n, h, d, True), PEAK_BF16)
+    tolerance = f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out)"
+    common = dict(stage=label, shape=shape, tolerance=tolerance)
+    log(f"rotary attention {label}: fwd {fwd_ms:.4f} ms (bound {bf[0]:.4f}, SDPA "
+        f"{lib_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (bound {bb[0]:.4f}, SDPA "
+        f"{lib_all_ms - lib_fwd_ms:.4f}); max abs err {err_fwd:.3e} / {err_bwd:.3e}")
+    entries = [dict(name="rope_attention_fwd", **common, max_abs_err=err_fwd, ms=fwd_ms,
+                    call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bf[0],
+                    bound_by=bf[1], library_ms=lib_fwd_ms,
+                    library_call="rotation in PyTorch, then F.scaled_dot_product_attention"),
+               dict(name="rope_attention_bwd", **common, max_abs_err=err_bwd, ms=bwd_ms,
+                    call_ms=bwd_call_ms, plain_ms=plain_bwd_ms, bound_ms=bb[0],
+                    bound_by=bb[1], library_ms=lib_all_ms - lib_fwd_ms,
+                    library_call="the same, forward+backward - forward")]
+    del qkv, g, o, lse, leaf
+    torch.cuda.empty_cache()
+    return entries
+
+
+def eva_attention_work(b: int, n: int, h: int, d: int, backward: bool):
+    """``(bytes, operations)`` of the rotary attention: the projection,
+    output, cotangents in bf16, the float32 log-sum-exp and tables; two N^2 d
+    products forward, five backward, and the rotations."""
+    w, extra = h * d, 4.0 * b * h * n + 8.0 * n * d
+    if backward:
+        return 2.0 * b * n * 8 * w + extra, 10.0 * b * h * n * n * d + 12.0 * b * n * w
+    return 2.0 * b * n * 4 * w + extra, 4.0 * b * h * n * n * d + 6.0 * b * n * w
+
+
+def eva_swiglu_bytes(rows: int, hidden: int, backward: bool) -> float:
+    """HBM bytes of the SwiGLU sub-LN: the packed GEMM output, the
+    normalised rows (forward) or the cotangents (backward) in bf16, each
+    row's float32 statistics, the float32 weight and bias (and their
+    gradients)."""
+    if backward:
+        return 2.0 * rows * 5 * hidden + 8.0 * rows + 12.0 * hidden
+    return 2.0 * rows * 3 * hidden + 8.0 * rows + 8.0 * hidden
+
+
+def check_swiglu_ln(label: str, reps: int, rows: int, hidden: int, pitch: int):
+    """The SwiGLU sub-LN (G1/G2) at EVA-02-L's ``(rows, 2P)`` GEMM output: y,
+    du and the norm's gradients against the plain float32 versions
+    (``BF16_TOL``; the float32 parameter gradients 1e-3), one counted launch
+    each way, each direction timed beside its HBM bound, the plain float32
+    version and PyTorch's own ops in bf16 (``F.silu``, the product,
+    ``F.layer_norm``)."""
+    import torch
+    import torch.nn.functional as F
+    from vit_search_torch.ops import swiglu_ln as S
+
+    gen = torch.Generator(device="cuda").manual_seed(hidden)
+    u = (2 * torch.randn(rows, 2 * pitch, device="cuda", generator=gen)).bfloat16()
+    g = torch.randn(rows, pitch, device="cuda", generator=gen).bfloat16()
+    w = 1 + 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    shape = {"B": rows, "C": hidden, "pitch": pitch, "dtype": "bfloat16"}
+    before = (S.G1.launches, S.G2.launches)
+    leaves = [u.clone().requires_grad_(), w.clone().requires_grad_(),
+              beta.clone().requires_grad_()]
+    y = S.swiglu_ln(*leaves, 1e-6)
+    grads = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    if (S.G1.launches, S.G2.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"SwiGLU-LN {label}: launches not counted once")
+    stats = S.swiglu_ln_stats_plain(u, 1e-6, hidden)
+    want = S.swiglu_ln_bwd_plain(u, w, stats, g)
+    err_fwd = compare(f"SwiGLU-LN forward {label}", y, S.swiglu_ln_plain(u, w, beta, 1e-6),
+                      BF16_TOL)
+    err_bwd = max(compare(f"SwiGLU-LN backward {label} (du)", grads[0], want[0], BF16_TOL),
+                  *(compare(f"SwiGLU-LN backward {label} ({what})", a, e, (1e-3, 1e-3))
+                    for what, a, e in zip(("dw", "db"), grads[1:], want[1:])))
+    del y, grads, want, leaves
+    _, st = S.swiglu_ln_fwd_cuda(u, w, beta, 1e-6)
+    fwd_ms = graph_ms(lambda x: S.swiglu_ln_fwd_cuda(x, w, beta, 1e-6), (u,), reps)
+    bwd_ms = graph_ms(lambda x, z: S.swiglu_ln_bwd_cuda(x, w, st, z), (u, g), reps)
+    fwd_call_ms = time_ms(lambda: S.swiglu_ln_fwd_cuda(u, w, beta, 1e-6), reps)
+    bwd_call_ms = time_ms(lambda: S.swiglu_ln_bwd_cuda(u, w, st, g), reps)
+    plain_fwd_ms = time_ms(lambda: S.swiglu_ln_plain(u, w, beta, 1e-6), reps)
+    plain_bwd_ms = time_ms(lambda: S.swiglu_ln_bwd_plain(u, w, st, g), reps)
+    lib = [u.detach().clone().requires_grad_(), w.detach().clone().requires_grad_(),
+           beta.detach().clone().requires_grad_()]
+
+    def torch_ops():
+        a, b = (t[:, :hidden] for t in lib[0].chunk(2, dim=-1))
+        return F.layer_norm(F.silu(a) * b, (hidden,), lib[1].bfloat16(), lib[2].bfloat16(),
+                            1e-6)
+
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(torch_ops, reps)
+    lib_all_ms = time_ms(lambda: torch.autograd.grad(torch_ops(), lib, g[:, :hidden]), reps)
+    bf = bound(eva_swiglu_bytes(rows, hidden, False), 0.0, PEAK_BF16)
+    bb = bound(eva_swiglu_bytes(rows, hidden, True), 0.0, PEAK_BF16)
+    tolerance = (f"abs <= {BF16_TOL[0]}*max|ref| + {BF16_TOL[1]}*|ref| (bf16 out); "
+                 f"dw, db 1e-3")
+    common = dict(stage=label, shape=shape, tolerance=tolerance)
+    log(f"SwiGLU-LN {label}: fwd {fwd_ms:.4f} ms (bound {bf[0]:.4f}, torch {lib_fwd_ms:.4f}), "
+        f"bwd {bwd_ms:.4f} ms (bound {bb[0]:.4f}, torch {lib_all_ms - lib_fwd_ms:.4f}); "
+        f"max abs err {err_fwd:.3e} / {err_bwd:.3e}")
+    entries = [dict(name="swiglu_ln_fwd", **common, max_abs_err=err_fwd, ms=fwd_ms,
+                    call_ms=fwd_call_ms, plain_ms=plain_fwd_ms, bound_ms=bf[0],
+                    bound_by=bf[1], library_ms=lib_fwd_ms,
+                    library_call="F.silu, the product and F.layer_norm in bf16"),
+               dict(name="swiglu_ln_bwd", **common, max_abs_err=err_bwd, ms=bwd_ms,
+                    call_ms=bwd_call_ms, plain_ms=plain_bwd_ms, bound_ms=bb[0],
+                    bound_by=bb[1], library_ms=lib_all_ms - lib_fwd_ms,
+                    library_call="the same, forward+backward - forward")]
+    del u, g, st, lib
+    torch.cuda.empty_cache()
+    return entries
+
+
 # The kernel table. ``check`` names a function of ``CHECKS``, called as
 # ``check(label, REPS, *shape)``; it compares its kernels with their plain
 # versions and returns one row for each of its kernels. ``net`` names the net
 # whose pass gives the shape (``row_launches``). ``group``: "kernels" runs in
-# the full run only, "stem", "swin" and "prefix" also alone (``--phase``).
+# the full run only, "stem", "swin", "prefix" and "eva" also alone (``--phase``).
 Case = collections.namedtuple("Case", "group check label shape net")
 
 
@@ -1845,6 +2017,9 @@ def cases() -> tuple:
         *(Case("swin", "window_attention",
                f"SwinV2-B stage {1 + [64, 32, 16, 8].index(r)}" + (" shifted" if shift else ""),
                (bw, n, h, shift, r), "SwinV2-B") for bw, n, h, shift, r in SWIN_STAGES),
+        # EVA-02-L's rotary attention and SwiGLU sub-LN at the fine-tune cell's shape
+        Case("eva", "rope_attention", "EVA-02-L 448px", EVA_ATTENTION, "EVA-02-L"),
+        Case("eva", "swiglu_ln", "EVA-02-L 448px", EVA_SWIGLU, "EVA-02-L"),
     )
 
 
@@ -1852,7 +2027,8 @@ def cases() -> tuple:
 CHECKS = {"attention": check_attention, "masked_ln": check_masked_ln,
           "row_stats": check_row_stats, "lab": check_lab, "layer_norm": check_layer_norm,
           "stem_norm": check_stem_norm, "stem_module": stem_module,
-          "window_attention": check_window_attention, "prefix_mask": check_prefix_mask}
+          "window_attention": check_window_attention, "prefix_mask": check_prefix_mask,
+          "rope_attention": check_rope_attention, "swiglu_ln": check_swiglu_ln}
 
 
 def row_launches(row: dict, scripts: dict):
@@ -1870,9 +2046,10 @@ def row_launches(row: dict, scripts: dict):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the full JSON report")
-    parser.add_argument("--phase", choices=("all", "swin", "stem", "prefix"), default="all",
+    parser.add_argument("--phase", choices=("all", "swin", "stem", "prefix", "eva"),
+                        default="all",
                         help="the whole table and the recipes, or only the table's SwinV2, "
-                             "conv stem or prefix-mask cases (after the build)")
+                             "conv stem, prefix-mask or EVA-02 cases (after the build)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1882,6 +2059,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from vit_search_torch.ops import attention, kernels, masked_layer_norm, stats  # noqa: F401
     from vit_search_torch.ops import batch_norm, window_attention  # noqa: F401
+    from vit_search_torch.ops import rope_attention, swiglu_ln  # noqa: F401
     from vit_search_torch.tools import attn_lab  # noqa: F401
 
     card = card_line()

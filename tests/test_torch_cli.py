@@ -109,12 +109,14 @@ def test_the_24_scripts_are_all_found():
 def test_training_script_parses_under_the_port_parser(script):
     """The script's arguments, from the one after ``-m vit_search_tpu.cli.train``
     on, parse unchanged under the port's parser, to the JAX parser's values
-    (``--device`` aside: the port's default is the card)."""
+    (``--device`` aside: the port's default is the card; ``--layer_decay``,
+    the port's alone, off)."""
     _, argv = _script_args(os.path.join(REPO, script))
     argv = [os.path.expandvars(w) for w in argv]
     ours = vars(get_args_parser().parse_args(argv))
     theirs = vars(jax_parser().parse_args(argv))
     assert ours.pop("device") == "cuda" and theirs.pop("device") == "tpu"
+    assert ours.pop("layer_decay") is None
     assert ours == theirs
 
 
@@ -135,7 +137,9 @@ def test_parser_has_every_jax_flag_with_its_default():
             for a in get_args_parser()._actions}
     theirs = {a.dest: (tuple(a.option_strings), a.default, a.nargs, a.type)
               for a in jax_parser()._actions}
-    assert len(get_args_parser()._actions) == len(jax_parser()._actions) == 78
+    # the port adds one flag, --layer_decay (layer-wise learning-rate decay), off by default
+    assert len(get_args_parser()._actions) == len(jax_parser()._actions) + 1 == 79
+    assert ours.pop("layer_decay") == (("--layer_decay", "--layer-decay"), None, None, float)
     ours_device, theirs_device = ours.pop("device"), theirs.pop("device")
     assert ours_device[0] == theirs_device[0] and ours_device[1] == "cuda"
     assert ours == theirs

@@ -159,12 +159,12 @@ def _jax_registered_names():
 
 # names the port registers beyond the JAX package's (models it has no
 # counterpart of)
-PORT_ONLY = ["swinv2_base_window16_256"]
+PORT_ONLY = ["eva02_large_patch14_448", "swinv2_base_window16_256"]
 
 
 def test_registry_names_match_jax():
     assert available_models() == sorted(_jax_registered_names() + PORT_ONLY)
-    assert len(available_models()) == 22
+    assert len(available_models()) == 23
 
 
 SR_DEF = ((0, 16), (1, (16, 2, 8), (16, 32), 1), (3, 16, 32), (1, (32, 2, 16), (32, 64), 1),
@@ -182,6 +182,8 @@ def _small_kwargs(name):
     if name.startswith("swinv2"):
         return dict(img_size=64, embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),
                     window_size=4, num_classes=10)
+    if name.startswith("eva02"):
+        return dict(embed_dim=64, depth=2, num_heads=2, num_classes=10)
     return dict(NARROW)
 
 

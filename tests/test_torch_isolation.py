@@ -176,3 +176,28 @@ def test_chip_smoke_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# --- the plain EVA-02 reference and its benchmark copy -----------------------------
+
+EVA_REFERENCES = (REPO / "tests" / "eva02_reference.py",
+                  REPO / "benchmark" / "reference" / "eva02.py")
+
+
+def test_eva02_reference_and_its_benchmark_copy_are_equal_statement_for_statement():
+    ours, copy = ([ast.dump(node) for node in ast.parse(p.read_text()).body]
+                  for p in EVA_REFERENCES)
+    assert ours == copy
+
+
+@pytest.mark.parametrize("path", EVA_REFERENCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_eva02_reference_imports_neither_package(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN + ("vit_search_torch",), name

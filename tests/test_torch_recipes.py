@@ -250,19 +250,21 @@ def _case_kernels(case) -> tuple:
                 else ("batch_norm_apply",))
     return {"row_stats": ("row_sum_sumsq",), "lab": tuple(c[0] for c in chip_smoke.lab_cases()),
             "layer_norm": ("layer_norm_fwd", "layer_norm_bwd"), "stem_module": (),
-            "window_attention": ("window_attention_fwd", "window_attention_bwd")}[case.check]
+            "window_attention": ("window_attention_fwd", "window_attention_bwd"),
+            "rope_attention": ("rope_attention_fwd", "rope_attention_bwd"),
+            "swiglu_ln": ("swiglu_ln_fwd", "swiglu_ln_bwd")}[case.check]
 
 
 def test_the_table_covers_every_registered_kernel():
     """Every kernel has a row among ``cases()``; each case names a check,
     and its net is a script that the recipes phase runs (which counts the
-    row's launches), DeiT-S, SwinV2-B, or none."""
+    row's launches), DeiT-S, SwinV2-B, EVA-02-L, or none."""
     cases = chip_smoke.cases()
     rows = {name for case in cases for name in _case_kernels(case)}
     assert rows == set(chip_smoke.KERNEL_NAMES)
     for case in cases:
         assert case.check in chip_smoke.CHECKS, case
-        assert case.net in (*chip_smoke.RECIPES, "DeiT-S", "SwinV2-B", None), case
+        assert case.net in (*chip_smoke.RECIPES, "DeiT-S", "SwinV2-B", "EVA-02-L", None), case
 
 
 # --- the CLI writes the checkpoints that the chain reads ------------------------------

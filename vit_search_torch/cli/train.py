@@ -111,6 +111,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     parser.add_argument("--decay-epochs", type=float, default=30)
     parser.add_argument("--cooldown-epochs", type=int, default=10)
     parser.add_argument("--decay-rate", "--dr", type=float, default=0.1)
+    parser.add_argument("--layer_decay", "--layer-decay", type=float, default=None,
+                        help="layer-wise learning-rate decay (BEiT/EVA-02) for a model that "
+                             "numbers its layers; off by default (not in the JAX CLI)")
 
     # Augmentation
     parser.add_argument("--color-jitter", type=float, default=0.4)
@@ -361,7 +364,8 @@ def main(args) -> dict:
         beta1=betas[0], beta2=betas[1], eps=args.opt_eps,
         lr_noise=args.lr_noise, lr_noise_pct=args.lr_noise_pct,
         lr_noise_std=args.lr_noise_std, seed=args.seed,
-        sched=args.sched, decay_epochs=args.decay_epochs, decay_rate=args.decay_rate)
+        sched=args.sched, decay_epochs=args.decay_epochs, decay_rate=args.decay_rate,
+        layer_decay=args.layer_decay)
     optimizer = train.make_optimizer(ocfg, model)
 
     mixup_active = (args.mixup > 0 or args.cutmix > 0

@@ -4,7 +4,8 @@ Port of vit_search_tpu/models/registry.py, every name: the ViT-SR patch-14
 nets (the six 224 px names and the 280/336/392 px patch-output nets the
 finetune scripts train), the flexible flat ViTs (patch 16), the stock and
 distilled DeiT nets, and the RegNetY-16GF teacher; and, not in the JAX
-package, SwinV2-B (``swinv2_base_window16_256``). ``*_supernet`` names
+package, SwinV2-B (``swinv2_base_window16_256``) and EVA-02-L at 448 px
+(``eva02_large_patch14_448``). ``*_supernet`` names
 build the same module as their base name: supernet training is a property of
 the masks fed at call time.
 """
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..arch import presets
 from ..arch.presets import flat_vit_def
+from .eva02 import EVA02
 from .regnet import RegNetYUpsample
 from .swin_v2 import SwinTransformerV2
 from .vit_sr import VisionTransformerSR
@@ -41,8 +43,8 @@ def create_model(name: str, **kwargs) -> nn.Module:
     """Instantiate a registered model on the CUDA device (``device="cpu"``
     to build it on the CPU). Keyword arguments go to
     :class:`VisionTransformerSR` (``gelu``, ``ln_route``, ``dtype``, ...),
-    to :class:`RegNetYUpsample` for the teacher, or to
-    :class:`SwinTransformerV2`."""
+    to :class:`RegNetYUpsample` for the teacher, to
+    :class:`SwinTransformerV2` or to :class:`EVA02`."""
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -193,6 +195,20 @@ def swinv2_base_window16_256(**kwargs):
         raise ValueError("SwinV2 is not built from a network_def")
     kwargs.setdefault("drop_path_rate", 0.5)
     return SwinTransformerV2(**kwargs)
+
+
+# --- EVA-02 ----------------------------------------------------------------------
+
+@register_model
+def eva02_large_patch14_448(**kwargs):
+    """EVA-02-L fine-tuned at 448 px (``eva02_large_patch14_xattn_fusedLN_
+    NaiveSwiGLU_subln_RoPE``): patch 14, embed 1024, 24 blocks, 16 heads of
+    64, SwiGLU hidden ``int(1024 * 4 * 2 / 3)`` = 2730; ``img_size``,
+    ``depth``, ``embed_dim``, ``num_heads`` and ``mlp_ratio`` may be given."""
+    if kwargs.pop("network_def", None) is not None:
+        raise ValueError("EVA-02 is not built from a network_def")
+    kwargs.setdefault("img_size", 448)
+    return EVA02(patch_size=14, **kwargs)
 
 
 # --- teacher ---------------------------------------------------------------------

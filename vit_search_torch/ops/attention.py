@@ -23,7 +23,9 @@ backward rounds ``p`` and ``ds`` to bfloat16 as operands of its products
 CUDA-core body, all in float32. A bfloat16 backward whose one-launch body
 does not fit in shared memory (N past 624 at d = 32) takes the split
 backward of ``csrc/attention_tc.cuh`` instead, two launches counted as one
-call of its kernel; the choice is fixed by ``(N, d)``. The plain versions
+call of its kernel; the choice is fixed by ``(N, d)``. Past the split's
+reach (N past 640 at d = 64), :func:`fused_attention_qkv` takes the
+streaming kernels of ``ops/rope_attention.py``. The plain versions
 are the float32 function. The JAX module's VMEM budgeting (``_pick_group``,
 ``_pick_group_t``, ``_params_t`` and ``VST_ATTN_T_VMEM_MB``) sizes TPU
 blocks and has no counterpart: on the card every layout runs one block per
@@ -37,6 +39,7 @@ kernels, or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -360,8 +363,27 @@ class _FusedAttentionQKVT(torch.autograd.Function):
 
 
 def fused_attention_qkv(qkv: torch.Tensor, scale: float, num_heads: int) -> torch.Tensor:
-    """``softmax(q k^T * scale) v`` straight off the packed projection."""
+    """``softmax(q k^T * scale) v`` straight off the packed projection. A
+    bfloat16 CUDA call whose K1/K2 do not fit a block's shared memory runs
+    the streaming kernels R1/R2 (``ops.rope_attention``, no tables) instead;
+    the choice is fixed by ``(N, d)``."""
+    if qkv.is_cuda and qkv.dtype == torch.bfloat16 and _streams(qkv.shape[1], qkv.shape[2],
+                                                                  num_heads):
+        from .rope_attention import rope_attention
+
+        return rope_attention(qkv, None, scale, num_heads)
     return _FusedAttentionQKV.apply(qkv.contiguous(), float(scale), int(num_heads))
+
+
+@functools.lru_cache(maxsize=None)
+def _streams(n: int, width: int, num_heads: int) -> bool:
+    """Whether a bfloat16 CUDA call of ``fused_attention_qkv`` at ``(N,
+    3W)`` takes R1/R2: K1/K2 do not fit a block's shared memory there.
+    Resolved once a shape."""
+    from .rope_attention import k1_fits
+
+    d = _head_dim(width, 3, num_heads)
+    return d in KERNEL_HEAD_DIMS and not k1_fits(n, d)
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("attention", "masked_ln", "stats", "attn_lab", "window_attention",
-           "batch_norm", "prefix_mask")
+           "batch_norm", "prefix_mask", "attention_rope", "swiglu_ln")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

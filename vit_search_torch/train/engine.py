@@ -283,7 +283,7 @@ class TrainStep:
                 lr = self.schedule(self.state.step) if self.schedule is not None else None
                 if lr is not None:
                     for group in self.optimizer.param_groups:
-                        group["lr"] = lr
+                        group["lr"] = lr * group.get("lr_scale", 1.0)
                 self.optimizer.step()
             if self.state.ema_params is not None:
                 with span("vst.train.ema"):

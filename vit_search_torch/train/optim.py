@@ -14,14 +14,19 @@ Port of vit_search_tpu/train/optim.py:
 - ``clip_grad``: optax ``clip_by_global_norm`` before AdamW, as the JAX
   package chains it (optim.py:196-197). :func:`make_optimizer` keeps the
   value in each parameter group (``"clip_grad"``), where the train step,
-  which already holds the global norm, reads it.
+  which already holds the global norm, reads it;
+- ``layer_decay`` (off by default; not in the JAX package): BEiT/EVA-02's
+  layer-wise learning-rate decay for a model that numbers its parameters'
+  layers (``layer_id``, ``depth``): a parameter of layer ``l`` learns at
+  ``layer_decay ** (depth + 1 - l)`` of the schedule's rate, held in its
+  group's ``"lr_scale"``, which the train step multiplies in.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,6 +56,7 @@ class OptimConfig:
     sched: str = "cosine"           # cosine | step | tanh
     decay_epochs: float = 30.0
     decay_rate: float = 0.1
+    layer_decay: Optional[float] = None   # layer-wise lr decay; None: one rate for all
 
     @property
     def scaled_lr(self) -> float:
@@ -165,12 +171,43 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
     torch._foreach_mul_(grads, torch.where(clip, torch.full_like(norm, max_norm), one))
 
 
-def make_optimizer(config: OptimConfig, model: nn.Module) -> torch.optim.AdamW:
-    """AdamW over two parameter groups (decayed / not), each carrying
-    ``clip_grad``. The train step sets each group's ``lr`` from the schedule
-    before every update."""
+def layer_scales(model: nn.Module, layer_decay: float) -> Dict[str, float]:
+    """Each parameter's learning-rate scale under layer-wise decay: layer
+    ``l`` of ``model.layer_id`` gets ``layer_decay ** (depth + 1 - l)``, so
+    block ``i`` ``layer_decay ** (depth - i)``, the stem ``layer_decay **
+    (depth + 1)`` and the head 1."""
+    if not hasattr(model, "layer_id"):
+        raise ValueError(f"{type(model).__name__} numbers no layers: --layer_decay needs a "
+                         f"model with layer_id()")
+    top = model.depth + 1
+    return {name: float(layer_decay) ** (top - model.layer_id(name))
+            for name, _ in model.named_parameters()}
+
+
+def param_groups(config: OptimConfig, model: nn.Module) -> List[Dict]:
+    """AdamW's parameter groups: decayed, then not, each carrying
+    ``clip_grad``; under ``layer_decay`` that pair for each learning-rate
+    scale, deepest layer first, each with its ``"lr_scale"``."""
     decay, no_decay = weight_decay_groups(model)
-    return torch.optim.AdamW(
-        [{"params": decay, "weight_decay": config.weight_decay, "clip_grad": config.clip_grad},
-         {"params": no_decay, "weight_decay": 0.0, "clip_grad": config.clip_grad}],
-        lr=float(lr_schedule(config)(0)), betas=(config.beta1, config.beta2), eps=config.eps)
+    if config.layer_decay is None:
+        return [{"params": decay, "weight_decay": config.weight_decay,
+                 "clip_grad": config.clip_grad},
+                {"params": no_decay, "weight_decay": 0.0, "clip_grad": config.clip_grad}]
+    names = {id(p): n for n, p in model.named_parameters()}
+    scales = layer_scales(model, config.layer_decay)
+    groups: Dict[Tuple[float, bool], List[nn.Parameter]] = {}
+    for wd, params in ((True, decay), (False, no_decay)):
+        for p in params:
+            groups.setdefault((scales[names[id(p)]], wd), []).append(p)
+    return [{"params": params, "weight_decay": config.weight_decay if wd else 0.0,
+             "clip_grad": config.clip_grad, "lr_scale": scale}
+            for (scale, wd), params in sorted(groups.items(),
+                                              key=lambda kv: (kv[0][0], not kv[0][1]))]
+
+
+def make_optimizer(config: OptimConfig, model: nn.Module) -> torch.optim.AdamW:
+    """AdamW over :func:`param_groups`. The train step sets each group's
+    ``lr`` from the schedule (times its ``lr_scale``, where it has one)
+    before every update."""
+    return torch.optim.AdamW(param_groups(config, model), lr=float(lr_schedule(config)(0)),
+                             betas=(config.beta1, config.beta2), eps=config.eps)
